@@ -1,6 +1,7 @@
-"""Batched many-GP fleet throughput (1 chip): fits/s for B small GPs.
+"""Batched many-GP fleet throughput (1 device): fits/s for B small GPs.
 
-The MXU-friendly regime (SURVEY.md §7): batched Gram + batched Cholesky.
+Batched Gram + batched Cholesky (SURVEY.md §7), timed as the median of
+block_until_ready calls (bench.py::time_call).
     python benchmarks/bench_batched.py [B] [n]
 """
 
@@ -15,6 +16,10 @@ import numpy as np
 
 
 def main():
+    from bench import time_call
+    from gpr_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     import jax
     import jax.numpy as jnp
 
@@ -24,40 +29,16 @@ def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 512
     d, q = 8, 4
-    # BENCH_CROUT=0/1 forces the fleet factorizer; unset = auto-dispatch
-    crout_env = os.environ.get("BENCH_CROUT")
-    use_crout = None if crout_env is None else bool(int(crout_env))
 
     rng = np.random.default_rng(0)
     X = jnp.asarray(rng.standard_normal((B, n, d)).astype(np.float32))
     Y = jnp.asarray(rng.standard_normal((B, n, q)).astype(np.float32))
     kernel = gpr_tpu.Gaussian(jnp.float32(2.0), jnp.float32(1.0))
 
-    def make(R):
-        @jax.jit
-        def f(X, Y):
-            out = jnp.asarray(0.0, jnp.float32)
-            for _ in range(R):
-                fleet = batched.fit_batched(
-                    kernel, X + out * 1e-30, Y, sigma=0.1, use_crout=use_crout
-                )
-                out = jnp.sum(fleet.alpha[:, -1])
-            return out
-
-        return f
-
-    f1, f4 = make(1), make(4)
-    float(f1(X, Y)); float(f4(X, Y))
-
-    def best(f):
-        b = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            float(f(X, Y))
-            b = min(b, time.perf_counter() - t0)
-        return b
-
-    per = (best(f4) - best(f1)) / 3.0
+    fit = jax.jit(
+        lambda X, Y: batched.fit_batched(kernel, X, Y, sigma=0.1).alpha
+    )
+    per = time_call(fit, X, Y)
     flops = B * (2 * n * n * d + n**3 / 3 + 2 * n * n * q)
     print(
         json.dumps(
@@ -66,8 +47,8 @@ def main():
                 "value": round(B / per, 1),
                 "unit": "fits/s",
                 "detail": {
-                    "backend": jax.default_backend(),
-                    "crout": crout_env or "auto",
+                    "device": {"platform": jax.devices()[0].platform,
+                               "kind": jax.devices()[0].device_kind},
                     "tflops": round(flops / per / 1e12, 2),
                     "seconds_per_batch": round(per, 5),
                 },

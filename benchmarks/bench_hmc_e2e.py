@@ -1,12 +1,12 @@
-"""End-to-end chunked-sampler throughput at the PUBLISHED config
-(BENCHMARKS.md samplers section: 8 chains, n=256, L=8, direct-Cholesky
-GP-hyperparameter posterior — the same logp as bench_hmc's device-rate
-measurement) plus the samples/s-vs-chains scaling curve (VERDICT r4
-item 3).
+"""End-to-end chunked-sampler throughput (8 chains, n=256, L=8,
+direct-Cholesky GP-hyperparameter posterior — the same logp as
+bench_hmc's device-rate measurement) plus the samples/s-vs-chains
+scaling curve.
 
 e2e convention: chains * total transitions (warmup + sampling) / wall
 seconds of the FULL production call (sample_hmc_chunked, steady state:
-second invocation, programs cached).  Writes HMC_E2E.json.
+second invocation, programs cached).  Prints one JSON line per chain
+count and a summary line.
 
     python benchmarks/bench_hmc_e2e.py [n_data]
 """
@@ -28,12 +28,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/gpr_tpu_jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except (AttributeError, ValueError):
-        pass
+    from gpr_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import gpr_tpu
     from gpr_tpu.inference import hmc
@@ -94,9 +91,7 @@ def main():
                    "chunk": chunk, "posterior": "gp-hyper direct-cholesky"},
         "rows": rows,
     }
-    with open(os.path.join(_REPO, "HMC_E2E.json"), "w") as f:
-        json.dump(out, f, indent=2)
-    print(json.dumps({"written": "HMC_E2E.json"}))
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -23,12 +23,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/gpr_tpu_jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except (AttributeError, ValueError):
-        pass
+    from gpr_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import gpr_tpu
     from gpr_tpu.inference import nuts

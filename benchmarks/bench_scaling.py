@@ -1,18 +1,15 @@
 """Multi-device sampler scaling harness — samples/s and parallel
-efficiency per device count (BASELINE.json north star: ">= 80% of linear
-scaling 1 -> 2 hosts"; SURVEY.md §5.8).
+efficiency per device count (SURVEY.md §5.8).
 
 Weak scaling: chains-per-device held fixed, the chain axis sharded over a
-1-D mesh via `sample_hmc_sharded_chunked` (the multi-chip production
-path).  On real multi-chip hardware this reports the actual headline; on
-a single chip (or the virtual CPU mesh: GPR_SCALING_BACKEND=cpu forces
---xla_force_host_platform_device_count=8) it validates that the harness,
-sharding, and efficiency accounting are ready to run the day multi-chip
-access exists (VERDICT r4 item 4).
+1-D mesh via `sample_hmc_sharded_chunked` (the multi-device production
+path).  On several GPUs this reports the scaling; on the virtual CPU mesh
+(GPR_SCALING_BACKEND=cpu forces --xla_force_host_platform_device_count=8)
+it only validates the harness, sharding and efficiency accounting.
 
 Prints one JSON line per device count:
   {"devices": N, "chains": C, "samples_per_s": S, "efficiency": E}
-and a summary line; writes SCALING.json at the repo root.
+and a summary line; writes the summary to $GPR_SCALING_OUT when set.
 
     python benchmarks/bench_scaling.py [chains_per_device] [n_data]
 """
@@ -42,12 +39,9 @@ def main():
 
     if os.environ.get("GPR_SCALING_BACKEND", "") == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/gpr_tpu_jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except (AttributeError, ValueError):
-        pass
+    from gpr_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import jax.numpy as jnp
 
@@ -134,11 +128,12 @@ def main():
             "virtual CPU mesh: all 'devices' share one host's cores, so "
             "efficiency-vs-linear is NOT meaningful here — this run "
             "validates the harness/sharding; run on real multi-chip "
-            "hardware for the BASELINE >=80% (1->2 hosts) figure"
+            "hardware for the scaling figure"
         )
-    out = os.environ.get("GPR_SCALING_OUT", os.path.join(_REPO, "SCALING.json"))
-    with open(out, "w") as f:
-        json.dump(summary, f, indent=2)
+    out = os.environ.get("GPR_SCALING_OUT")
+    if out:
+        with open(out, "w") as f:
+            json.dump(summary, f, indent=2)
     print(json.dumps({"written": out, "efficiency": summary["efficiency_vs_linear"]}))
 
 

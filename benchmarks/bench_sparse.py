@@ -1,11 +1,10 @@
-"""Sparse-GP performance story (VERDICT r4 item 5): on-chip timings of
-the O(n m^2) Woodbury path at production scales, and the n-crossover vs
-the exact O(n^3) fit.
+"""Sparse-GP performance: timings of the O(n m^2) Woodbury path at
+production scales, and the n-crossover vs the exact O(n^3) fit.
 
-Measures (slope-timed, see bench.py::_time_scalar_fn):
+Measures (median of block_until_ready calls, bench.py::time_call):
   fit_sparse(n, m)             training (PreComputeRegression semantics)
   sparse_mll value+grad(n, m)  the hyperparameter-optimization hot path
-  exact fit(n)                 the flagship fused path, for the crossover
+  exact fit(n)                 the exact path, for the crossover
 
 Reference semantics being re-designed: SparseLikelihood Woodbury/
 determinant-lemma (reference include/SparseLikelihood.h:129-150),
@@ -23,19 +22,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bench import _time_scalar_fn  # noqa: E402
+from bench import time_call  # noqa: E402
 
 
 def main():
+    from gpr_tpu.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     import jax
-
-    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/gpr_tpu_jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except (AttributeError, ValueError):
-        pass
-
     import jax.numpy as jnp
     import numpy as np
 
@@ -50,7 +44,6 @@ def main():
     Y = jnp.asarray(rng.standard_normal((n, q)), jnp.float32)
     kernel = gpr_tpu.Gaussian(jnp.float32(2.0), jnp.float32(1.0))
     sigma = jnp.float32(0.3)
-    on_tpu = jax.default_backend() == "tpu"
 
     out = {"n": n, "d": d, "q": q, "sparse": {}, "exact": {}}
 
@@ -68,7 +61,7 @@ def main():
 
             return f
 
-        t_fit = _time_scalar_fn(make_fit, X, Y, sigma, repeats=12, iters=5)
+        t_fit = time_call(make_fit(1), X, Y, sigma)
 
         def make_mllg(repeats, Z=Z):
             @jax.jit
@@ -90,7 +83,7 @@ def main():
 
             return f
 
-        t_mllg = _time_scalar_fn(make_mllg, X, Y, sigma, repeats=12, iters=5)
+        t_mllg = time_call(make_mllg(1), X, Y, sigma)
         # O(n m^2) flop model: Knm gram 2nmd + Woodbury inner n m^2 + chol m^3/3
         fl_fit = 2.0 * n * m * d + n * m * m + m**3 / 3.0
         out["sparse"][f"m{m}"] = {
@@ -100,20 +93,19 @@ def main():
         }
         print(json.dumps({"m": m, **out["sparse"][f"m{m}"]}), file=sys.stderr)
 
-    # exact-path crossover: the flagship fused fit at the same n
+    # exact-path crossover: the exact fit at the same n
     def make_exact(repeats):
         @jax.jit
         def f(X, Y, s):
             acc = jnp.float32(0.0)
             for _ in range(repeats):
-                gp = exact.fit(kernel, X + acc * 1e-30, Y, sigma=s,
-                               use_pallas_gram=on_tpu)
+                gp = exact.fit(kernel, X + acc * 1e-30, Y, sigma=s)
                 acc = jnp.sum(gp.alpha[-1])
             return acc
 
         return f
 
-    t_exact = _time_scalar_fn(make_exact, X, Y, sigma, repeats=2)
+    t_exact = time_call(make_exact(1), X, Y, sigma)
     out["exact"]["fit_ms"] = round(t_exact * 1e3, 3)
     print(json.dumps(out))
 

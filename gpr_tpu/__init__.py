@@ -1,12 +1,12 @@
-"""gpr_tpu — TPU-native Gaussian Process inference engine.
+"""gpr_tpu — accelerator-native Gaussian Process inference engine.
 
-A from-scratch JAX/XLA/Pallas rebuild of the full capability surface of the
+A from-scratch JAX/XLA rebuild of the full capability surface of the
 reference C++ library agiger/GPR (see SURVEY.md): composable kernels with
 hyperparameter gradients, exact and sparse (inducing-point) GP regression,
 Gaussian (log-)likelihoods, prior densities, MAP/MLE and HMC/NUTS
 hyperparameter inference, PCA + autoregressive feature pipelines, and
-train/predict CLI apps — designed TPU-first (MXU Gram construction, Cholesky
-solves, pjit/shard_map scale-out) rather than as a port.
+train/predict CLI apps — designed for an accelerator (GEMM Gram
+construction, Cholesky solves, shard_map scale-out) rather than as a port.
 """
 
 from .kernels.kernels import (  # noqa: F401

@@ -87,6 +87,9 @@ def main(argv=None) -> int:
     config_path = argv[0]
     n_train = int(argv[1])
     starts = [int(s) for s in argv[2].split(",")]
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     results = run_drift(config_path, n_train, starts)
     # write into the study's root_dir (NOT next to the config — configs
     # ship in the repo and run output must not dirty the working tree)

@@ -190,6 +190,9 @@ def main(argv=None) -> int:
         print("Usage: experiments <config.yaml | dir_of_yamls>")
         return -1
     target = argv[0]
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     if os.path.isdir(target):
         # run_experiments.py semantics: iterate configs in a folder
         configs: List[str] = sorted(

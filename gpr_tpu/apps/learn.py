@@ -1,4 +1,4 @@
-"""Training app — the reference's ``gpLearn`` binary re-built TPU-native.
+"""Training app — the reference's ``gpLearn`` binary re-built on JAX.
 
 Same CLI contract (reference apps/GaussianProcessLearn.cpp:70-73):
 
@@ -22,7 +22,16 @@ import numpy as np
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    """The CLI runs in float64, as the reference does: in float32 the
+    credible interval's k(x,x) - k^T (K + s^2 I)^-1 k cancels to noise at
+    the study's noise level (PERF.md)."""
+    import jax
+
+    with jax.enable_x64(True):
+        return _main(sys.argv[1:] if argv is None else argv)
+
+
+def _main(argv) -> int:
     print("\nGaussian process training app:")
     if len(argv) not in (5, 6):
         print(
@@ -45,6 +54,10 @@ def main(argv=None) -> int:
         ar_folder = ""
 
     kernel_string = config_model["kernel_string"]
+
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     data_noise = float(config_model["data_noise"])
 
     from ..utils.logutils import get_current_date_time, write_to_log_file

@@ -1,10 +1,10 @@
 """Batched many-GP mode: train/predict fleets of small GPs in one program.
 
 The reference processes one GP at a time (a single ``GaussianProcess``
-object per dataset); on TPU a *batch* of small/medium GPs is where the MXU
-shines — batched Gram construction and batched Cholesky keep the systolic
-array busy where a single small factorization is latency-bound (SURVEY.md
-§7 "consider batched many-small-GP mode").  Use cases: per-window drift
+object per dataset); on an accelerator a *batch* of small/medium GPs keeps
+the device busy where a single small factorization is latency-bound —
+batched Gram GEMMs and one batched Cholesky (SURVEY.md §7 "consider
+batched many-small-GP mode").  Use cases: per-window drift
 fleets, per-patient models, hyperparameter grids, bootstrap ensembles.
 
 All kernels' hyperparameters may be batched too: pass a kernel pytree whose
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from ..kernels import kernels as kermod
 from ..ops import linalg
+from ..utils.config import matmul_precision
 
 
 class BatchedGP(NamedTuple):
@@ -42,54 +43,9 @@ def _kernel_in_axes(kernel, batched: bool):
     return 0 if batched else None
 
 
-def _factor_and_solve(K, Y, use_crout: bool | None):
+def _factor_and_solve(K, Y):
     """Fleet factorization + regression solve: (B, n, n), (B, n, q) ->
-    (L, alpha).  ``use_crout=None`` auto-dispatches to the pallas fleet
-    factorizer on TPU (panel-stepped Crout sweep — measured fastest on
-    v5e; the fused single-kernel path is opt-in via GPR_FLEET_FUSED_MAX_N,
-    it loses by serializing each matrix on one core); False pins XLA's
-    batched potrf."""
-    from ..ops import pallas_batched
-
-    n = K.shape[1]
-    if use_crout is None:
-        use_crout = pallas_batched.batched_usable(n, K.dtype)
-    if use_crout:
-        interp = jax.default_backend() != "tpu"
-        if n <= pallas_batched._FLEET_FUSED_MAX_N:
-            # whole matrix fits VMEM: factor + solve in ONE pallas dispatch.
-            # panel trades VPU sweep cost (~n p^2 per matrix) against MXU
-            # GEMM granularity; GPR_FLEET_PANEL for on-chip A/B.
-            import os
-
-            panel = int(os.environ.get("GPR_FLEET_PANEL", 128))
-            if panel <= 0:
-                panel = 128
-            while n % panel and panel > 16:
-                panel //= 2
-            # _diff wrapper: identical primal kernel, plus the fleet
-            # custom_vjp so GPR_FLEET_FUSED_MAX_N stays compatible with
-            # gradient callers (jax.grad(mll_batched), fit_mle_batched)
-            return pallas_batched.factor_solve_fused_diff(
-                K, Y, panel, interp
-            )
-        import os
-
-        # panel sweep with the round-4 static-unrolled crout (B=128,
-        # fits/s): n=512 p16 20.4k / **p32 30.6k** / p64 25.6k / p128
-        # 10.3k; n=256 p32 201.7k / p64 86.2k; n=1024 p32 4.9k /
-        # **p64 6.6k** / p128 4.2k — smaller matrices want the finer
-        # sweep granularity, larger ones the wider trailing GEMMs
-        default_panel = 32 if n <= 512 else 64
-        panel = int(os.environ.get("GPR_FLEET_PANEL", default_panel))
-        while n % panel and panel > 16:
-            panel //= 2
-        # custom_vjp wrapper: same primal kernels, and gradient callers
-        # (mll_batched under jax.grad) get the Cholesky/solve pullbacks
-        # in batched GEMMs instead of falling back to XLA's batched potrf
-        return pallas_batched.factor_solve_batched_diff(
-            K, Y, panel, interp
-        )
+    (L, alpha) through XLA's batched Cholesky and triangular solves."""
     L = jnp.linalg.cholesky(K)
     alpha = jax.vmap(lambda l, y: jax.scipy.linalg.cho_solve((l, True), y))(L, Y)
     return L, alpha
@@ -102,16 +58,11 @@ def fit_batched(
     sigma,
     jitter: float = 0.0,
     batched_kernel: bool = False,
-    use_crout: bool | None = None,
 ) -> BatchedGP:
     """Train B GPs at once.  X (B, n, d), Y (B, n, q), sigma scalar or (B,).
 
-    One jitted program: vmapped Gram (a single big batched GEMM), then the
-    fleet factorization.  On TPU with panel-aligned n the factorization
-    dispatches to ``ops.pallas_batched.cholesky_batched`` (batched Crout
-    diagonal sweeps + batched MXU panel GEMMs — XLA's batched ``potrf``
-    custom call is latency-bound in this regime); ``use_crout`` forces the
-    choice (None = auto)."""
+    One jitted program: vmapped Gram (a single big batched GEMM), then one
+    batched Cholesky and batched triangular solves."""
     X = jnp.asarray(X)
     Y = jnp.asarray(Y)
     if Y.ndim == 2:
@@ -122,7 +73,7 @@ def fit_batched(
     k_axes = _kernel_in_axes(kernel, batched_kernel)
 
     K = _fleet_gram(kernel, X, sigma**2 + jitter, k_axes)
-    L, alpha = _factor_and_solve(K, Y, use_crout)
+    L, alpha = _factor_and_solve(K, Y)
     return BatchedGP(
         kernel=kernel, X=X, Y=Y, sigma=sigma, alpha=alpha, L=L,
         batched_kernel=batched_kernel,
@@ -130,43 +81,8 @@ def fit_batched(
 
 
 def _fleet_gram(kernel, X, noise, k_axes):
-    """K[b] + noise[b]*I for the fleet: the fused batched pallas kernel for
-    the stationary families on f32 (one HBM pass; the XLA vmapped gram's
-    batched sqdist dot materializes batch-minor pieces that cost two
-    ~256 MB relayout copies at B=128 n=512 — round-3 trace), XLA vmap
-    otherwise (White/Sum/Product, f64, CPU-without-interpret)."""
-    import os
-
-    use_pallas = (
-        X.dtype == jnp.float32
-        and os.environ.get("GPR_FLEET_GRAM", "pallas") == "pallas"
-    )
-    interp = jax.default_backend() != "tpu"
-    if use_pallas and interp and os.environ.get("GPR_FLEET_GRAM") != "pallas":
-        use_pallas = False
-    if use_pallas:
-        from ..ops import pallas_gram
-
-        disp = None
-        if isinstance(kernel, kermod.Gaussian):
-            disp = ("gaussian", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.GaussianExp):
-            disp = ("gaussian", jnp.exp(kernel.sigma), jnp.exp(kernel.scale), 1.0)
-        elif isinstance(kernel, kermod.RationalQuadratic):
-            disp = ("rq", kernel.sigma, kernel.scale, kernel.alpha)
-        elif isinstance(kernel, kermod.Matern12):
-            disp = ("matern12", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.Matern32):
-            disp = ("matern32", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.Matern52):
-            disp = ("matern52", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.Periodic):
-            disp = ("periodic", kernel.sigma, kernel.scale, kernel.b)
-        if disp is not None:
-            form, sg, sc, third = disp
-            return pallas_gram.gram_pallas_batched(
-                X, sg, sc, third, diag=noise, form=form, interpret=interp
-            ).astype(X.dtype)
+    """K[b] + noise[b]*I for the fleet: one vmapped Gram (a batched GEMM
+    plus the fused elementwise epilogue)."""
 
     def gram_one(k, x, nz):
         return linalg.add_diagonal(kermod.gram(k, x), nz)
@@ -183,7 +99,7 @@ def predict_batched(gp: BatchedGP, Xs) -> jax.Array:
 
     def one(k, xs, x, a):
         Ks = kermod.gram(k, xs, x)
-        return Ks @ a
+        return jnp.matmul(Ks, a, precision=matmul_precision())
 
     return jax.vmap(one, in_axes=(k_axes, 0, 0, 0))(gp.kernel, Xs, gp.X, gp.alpha)
 
@@ -204,18 +120,12 @@ def variance_batched(gp: BatchedGP, Xs) -> jax.Array:
 
 def mll_batched(
     kernel, X, Y, sigma, batched_kernel: bool = False,
-    use_crout: bool | None = None,
 ) -> jax.Array:
     """Per-GP scalar log marginal likelihoods (B,), matching
     ``likelihood.mll_scalar``'s convention per fleet member (datafit summed
     over output dims; complexity and constant counted ONCE) — e.g. for
-    scoring a hyperparameter grid in one shot.
-
-    ``use_crout=None`` auto-dispatches to the pallas fleet factorizer on
-    TPU like ``fit_batched`` (round 4: ``factor_solve_batched_diff``
-    carries a ``custom_vjp`` — Cholesky + solve pullbacks in batched
-    GEMMs — so mll is differentiable on the fast path; the round-3
-    restriction to XLA's batched potrf under ``jax.grad`` is gone)."""
+    scoring a hyperparameter grid in one shot.  Differentiable through
+    XLA's batched Cholesky and triangular-solve rules."""
     import math
 
     X = jnp.asarray(X)
@@ -230,7 +140,7 @@ def mll_batched(
         return linalg.add_diagonal(kermod.gram(k, x), s**2)
 
     K = jax.vmap(gram_one, in_axes=(k_axes, 0, 0))(kernel, X, sigma)
-    L, alpha = _factor_and_solve(K, Y, use_crout)
+    L, alpha = _factor_and_solve(K, Y)
     df = -0.5 * jnp.sum(Y * alpha, axis=(1, 2))
     cp = -jnp.sum(jnp.log(jnp.diagonal(L, axis1=1, axis2=2)), axis=1)
     return df + cp - n / 2.0 * math.log(2 * math.pi)
@@ -245,15 +155,13 @@ def fit_batched_sharded(
     axis: str = "fleet",
     jitter: float = 0.0,
     batched_kernel: bool = False,
-    use_crout: bool | None = None,
 ) -> BatchedGP:
     """Fleet training with the BATCH axis sharded over a device mesh — the
-    expert-parallel analogue for many independent GPs (each chip trains its
-    shard of models; no collectives needed until results are read).
+    expert-parallel analogue for many independent GPs (each device trains
+    its shard of models; no collectives needed until results are read).
 
     ``shard_map`` rather than GSPMD auto-partitioning: each device runs the
-    complete per-shard fit locally — including the pallas fleet factorizer,
-    which a partitioner cannot split — with zero communication."""
+    complete per-shard fit locally with zero communication."""
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -287,7 +195,7 @@ def fit_batched_sharded(
 
     def local_fit(k, x, y, s):
         K = _fleet_gram(k, x, s**2 + jitter, k_axes)
-        return _factor_and_solve(K, y, use_crout)
+        return _factor_and_solve(K, y)
 
     fit = jax.jit(
         jax.shard_map(
@@ -314,15 +222,12 @@ def fit_mle_batched(
     learning_rate: float = 0.05,
     log_space: bool = True,
     unroll_chunk: int = 0,
-    use_crout: bool | None = None,
     init=None,
 ):
     """Per-member MLE over a whole fleet in ONE optimizer loop: every GP
     optimizes its OWN hyperparameters simultaneously (the summed
     ``mll_batched`` objective has block-diagonal structure, so per-member
-    gradients never mix), riding the differentiable fleet factorizer
-    (``factor_solve_batched_diff``, 1.6x the stock-potrf grad path on
-    v5e at B=128 n=512).
+    gradients never mix), riding the differentiable batched Cholesky.
 
     The reference optimizes one model per process invocation
     (scripts/main.py loops ``gpLearn`` over studies; ``Optimize`` at
@@ -359,9 +264,7 @@ def fit_mle_batched(
             vecs = jnp.exp(vecs)
         kb = mk_kernel(vecs)
         return jnp.sum(
-            mll_batched(
-                kb, X, Y, sigma, batched_kernel=True, use_crout=use_crout
-            )
+            mll_batched(kb, X, Y, sigma, batched_kernel=True)
         )
 
     opt = optax.adam(learning_rate)

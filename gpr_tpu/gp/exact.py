@@ -1,12 +1,12 @@
-"""Exact multivariate GP regression, TPU-native.
+"""Exact multivariate GP regression.
 
 Functional re-design of the reference ``gpr::GaussianProcess``
 (reference include/GaussianProcess.h:33-328, lib/GaussianProcess.cpp).  The
 reference mutates a stateful object (AddSample -> Initialize -> Predict) and
 *explicitly inverts* the Gram matrix (lib/GaussianProcess.cpp:530-618).  Here
 training is one pure jittable function producing an immutable ``GP`` pytree,
-and all solves go through a Cholesky factor — numerically tighter and MXU
-friendly.  The explicit inverse (CoreMatrix) exists only as a save/load
+and all solves go through a Cholesky factor — numerically tighter and
+GEMM friendly.  The explicit inverse (CoreMatrix) exists only as a save/load
 artifact for byte-level compatibility with the reference model format.
 
 Mapping to the reference API:
@@ -129,11 +129,15 @@ class GP:
         mean = self.predict(Xs2)  # (m, q)
         Ks = kermod.gram(self.kernel, Xs2, self.X)
         Kss = kermod.gram(self.kernel, Xs2)
-        cov = Kss - Ks @ self._core_solve(Ks.T)
+        cov = Kss - jnp.matmul(
+            Ks, self._core_solve(Ks.T), precision=matmul_precision()
+        )
         cov = 0.5 * (cov + cov.T)
         Lc, _ = linalg.safe_cholesky(cov, initial_jitter=jitter)
         eps = jax.random.normal(key, (num_samples, Xs2.shape[0], mean.shape[1]), mean.dtype)
-        return mean[None] + jnp.einsum("ij,sjq->siq", Lc, eps)
+        return mean[None] + jnp.einsum(
+            "ij,sjq->siq", Lc, eps, precision=matmul_precision()
+        )
 
     # --- internals ----------------------------------------------------------
     def _check_input(self, x: jax.Array) -> jax.Array:
@@ -322,17 +326,15 @@ def fit(
     sigma: float = 0.0,
     efficient_storage: bool = False,
     jitter: float = 0.0,
-    use_pallas_gram: bool = False,
 ) -> GP:
     """Train an exact GP: factor K + sigma^2 I and solve for the regression
     vectors (reference Initialize -> ComputeRegressionVectors,
     lib/GaussianProcess.cpp:117-130,641-672 — but via Cholesky solve instead
     of the explicit inverse).
 
-    ``use_pallas_gram`` routes Gaussian/RationalQuadratic Gram construction
-    through the fused Pallas tile kernel (~4x XLA on v5e at n=16k).
-    Training is not differentiated, so the kernel's missing VJP is
-    irrelevant here; leave it off when grads through ``fit`` are needed."""
+    Gram -> ``safe_cholesky`` -> ``cho_solve``, all plain XLA: the Gram is
+    a GEMM plus a fused elementwise epilogue, the factor and the solves
+    lower to the vendor solver and triangular-solve libraries."""
     X = jnp.asarray(X)
     Y = jnp.asarray(Y)
     if X.ndim == 1:
@@ -343,102 +345,13 @@ def fit(
         raise ValueError(
             "GaussianProcess::Initialize: no input samples defined during initialization"
         )
-    K = None
-    if use_pallas_gram:
-        from ..ops import pallas_gram
-
-        interp = jax.default_backend() != "tpu"
-        noise = jnp.asarray(sigma, jnp.float32) ** 2
-        # K + sigma^2 I fused into the Gram kernel's HBM pass (the separate
-        # scatter-based diagonal add costs ~11 ms at n=16k on v5e).  For
-        # sizes on the blocked-Cholesky path, only the LOWER-triangle tiles
-        # are computed/written (half the Gram flops and HBM writes) — the
-        # sole consumer is safe_cholesky's potrf('L')-contract factorization.
-        tril = X.shape[0] >= linalg._BLOCKED_MIN_N
-        # (form, sigma, scale, third-param) per fused-tile kernel family;
-        # GaussianExp is the Gaussian form under its log parameterization
-        disp = None
-        if isinstance(kernel, kermod.Gaussian):
-            disp = ("gaussian", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.GaussianExp):
-            disp = ("gaussian", jnp.exp(kernel.sigma), jnp.exp(kernel.scale), 1.0)
-        elif isinstance(kernel, kermod.RationalQuadratic):
-            disp = ("rq", kernel.sigma, kernel.scale, kernel.alpha)
-        elif isinstance(kernel, kermod.Matern12):
-            disp = ("matern12", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.Matern32):
-            disp = ("matern32", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.Matern52):
-            disp = ("matern52", kernel.sigma, kernel.scale, 1.0)
-        elif isinstance(kernel, kermod.Periodic):
-            disp = ("periodic", kernel.sigma, kernel.scale, kernel.b)
-        if disp is not None:
-            form, sg, sc, third = disp
-            # One-dispatch fit: Gram construction + diagonal add +
-            # factorization as a SINGLE pallas kernel (ops/pallas_fullchol.
-            # gram_cholesky_fused) — the Gram matrix never exists in HBM
-            # at all (measured −1.8 ms vs tril-gram -> safe_cholesky at
-            # n=16k on v5e).  GPR_FIT_SCHEDULE=twopass restores the
-            # separate-pass route for A/B.
-            from ..ops import pallas_fullchol
-
-            n = X.shape[0]
-            if (
-                form in pallas_fullchol._GRAM_FORMS
-                and X.dtype == jnp.float32
-                and n >= 512
-                and jax.default_backend() == "tpu"
-                and linalg._chol_schedule() == "fused"
-                and os.environ.get("GPR_FIT_SCHEDULE", "fused") == "fused"
-            ):
-                # the kernel emits the panel-diagonal inverses alongside L,
-                # so the regression solve is two block-GEMM substitution
-                # sweeps (cho_solve_panels) instead of the blocked
-                # triangular solves (−~1 ms inside fit at n=16k).
-                # Arbitrary n rides this path via in-kernel pad masking
-                # (gram_cholesky_fused row-pads X and factors
-                # [[K, 0], [0, scale^2 I]] exactly); the panel width
-                # trades pad flops ((n_pad/n)^3 - 1) against L-tile
-                # stream volume (~n^3/(6*panel) bytes) — measured on v5e
-                # (BENCHMARKS.md round 5): 512-aligned n keeps panel=512,
-                # everything else pads to a 256 multiple.  Gate n >= 512:
-                # at n=700 the fused path measured 0.11 ms vs the
-                # twopass fallback's 1.43 (small-n fits are
-                # dispatch-bound; ONE kernel wins outright).
-                panel = 512 if n % 512 == 0 else 256
-                n_pad = -(-n // panel) * panel
-                L, W, _ = pallas_fullchol.safe_gram_cholesky_fused(
-                    X, sg, sc, third, noise,
-                    form=form, initial_jitter=jitter, panel=panel,
-                    return_winv=True,
-                )
-                Yp = Y
-                if n_pad != n:
-                    Yp = jnp.concatenate(
-                        [Y, jnp.zeros((n_pad - n, Y.shape[1]), Y.dtype)],
-                        axis=0,
-                    )
-                alpha = pallas_fullchol.cho_solve_panels(L, W, Yp)
-                if n_pad != n:
-                    # leading principal factor of the block-diagonal padded
-                    # system == chol(K + sigma^2 I); pad alphas are exact 0
-                    alpha = alpha[:n]
-                    L = L[:n, :n]
-                return GP(
-                    kernel=kernel,
-                    X=X,
-                    Y=Y,
-                    sigma=jnp.asarray(sigma, X.dtype),
-                    alpha=alpha,
-                    L=None if efficient_storage else L,
-                )
-            K = pallas_gram.gram_pallas(
-                X, X, sg, sc, third, diag=noise,
-                form=form, interpret=interp, tril=tril,
-            ).astype(X.dtype)
-    if K is None:
-        K = kermod.gram(kernel, X)
-        K = linalg.add_diagonal(K, jnp.asarray(sigma, K.dtype) ** 2)
+    if X.shape[0] != Y.shape[0]:
+        raise ValueError(
+            f"GaussianProcess::Initialize: {X.shape[0]} input samples but "
+            f"{Y.shape[0]} labels"
+        )
+    K = kermod.gram(kernel, X)
+    K = linalg.add_diagonal(K, jnp.asarray(sigma, K.dtype) ** 2)
     L, _ = linalg.safe_cholesky(K, initial_jitter=jitter)
     alpha = linalg.cho_solve(L, Y)
     return GP(

@@ -1,6 +1,6 @@
 """Sparse (inducing-point) GP regression — projected-process / SoR style.
 
-TPU-native re-design of the reference ``gpr::SparseGaussianProcess``
+Re-design of the reference ``gpr::SparseGaussianProcess``
 (reference include/SparseGaussianProcess.h:30-416) and
 ``SparseGaussianLogLikelihood`` (include/SparseLikelihood.h:112-551).
 

@@ -10,7 +10,7 @@ predictive distribution
 is a mixture over posterior draws — mean = E[mean_s], variance =
 E[var_s + mean_s^2] - mean^2.  Each draw's fit+predict runs as one vmapped
 program over a (subsampled) batch of draws: the batched Gram + batched
-Cholesky land on the MXU together (gp/batched.py machinery)."""
+Cholesky run on the device together (gp/batched.py machinery)."""
 
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from ..kernels import kernels as kermod
 from ..ops import linalg
+from ..utils.config import matmul_precision
 
 
 class PredictiveResult(NamedTuple):
@@ -73,7 +74,7 @@ def predictive(
         L, _ = linalg.safe_cholesky(K)
         alpha = jax.scipy.linalg.cho_solve((L, True), Y)
         Ks = kermod.gram(k, Xs, X)
-        mean = Ks @ alpha
+        mean = jnp.matmul(Ks, alpha, precision=matmul_precision())
         kss = jax.vmap(lambda v: k(v, v))(Xs)
         solved = jax.scipy.linalg.cho_solve((L, True), Ks.T)
         var = kss - jnp.sum(Ks * solved.T, axis=-1)

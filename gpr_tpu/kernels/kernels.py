@@ -1,6 +1,6 @@
 """Composable GP kernels as JAX pytrees.
 
-TPU-native re-design of the reference kernel hierarchy (reference:
+Re-design of the reference kernel hierarchy (reference:
 include/Kernel.h:41-1036 — virtual ``operator()`` evaluated per pair inside
 OpenMP loops).  Here a kernel is an immutable pytree whose *structure*
 (Sum/Product tree shape, kernel types) is static under ``jit`` and whose
@@ -8,7 +8,7 @@ OpenMP loops).  Here a kernel is an immutable pytree whose *structure*
 work directly on kernel objects.
 
 Gram matrices are never built by pairwise scalar evaluation.  Every base
-kernel is expressed in terms of quantities that XLA maps onto the MXU:
+kernel is expressed in terms of quantities that XLA maps onto GEMMs:
 
   * isotropic kernels (Gaussian, GaussianExp, RationalQuadratic, White) use
     the squared-distance trick  ||x-y||^2 = |x|^2 + |y|^2 - 2 x.y  — one GEMM
@@ -33,6 +33,7 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import tree_util
 
 
@@ -48,10 +49,10 @@ def _as_2d(X) -> jax.Array:
 
 
 def sqdist(X: jax.Array, Y: jax.Array) -> jax.Array:
-    """Pairwise squared Euclidean distances via GEMM (MXU path)."""
+    """Pairwise squared Euclidean distances via GEMM."""
     xx = jnp.sum(X * X, axis=-1)
     yy = jnp.sum(Y * Y, axis=-1)
-    # preferred_element_type pins the MXU accumulator
+    # preferred_element_type pins the GEMM accumulator
     from ..utils.config import matmul_precision
 
     xy = jax.lax.dot_general(
@@ -78,7 +79,7 @@ class Kernel:
 
     API surface (mirroring reference include/Kernel.h:41-146):
       k(x, y)                elementwise evaluation (scalars/vectors)
-      gram(k, X, Y)          full covariance matrix (module-level, MXU path)
+      gram(k, X, Y)          full covariance matrix (module-level, GEMM path)
       k.params               reference-ordered hyperparameter tuple
       k.with_params(vec)     functional SetParameters
       k.analytic_derivative(x, y)   the reference's hand-derived GetDerivative
@@ -180,9 +181,12 @@ class Gaussian(Kernel):
     def __post_init__(self):
         for name in ("sigma", "scale"):
             v = getattr(self, name)
-            # validate concrete scalars only (traced values and batched
-            # leaf arrays pass through)
-            if isinstance(v, jax.core.Tracer):
+            # validate concrete scalars only (traced values, abstract
+            # placeholders such as jit's lowering ArgInfo, and batched leaf
+            # arrays pass through)
+            if isinstance(v, jax.core.Tracer) or not isinstance(
+                v, (int, float, jax.Array, np.generic, np.ndarray)
+            ):
                 continue
             if getattr(v, "ndim", 0) != 0 and not jnp.isscalar(v):
                 continue
@@ -530,7 +534,7 @@ class Product(Kernel):
 # ---------------------------------------------------------------------------
 
 def gram(kernel: Kernel, X, Y=None) -> jax.Array:
-    """Full covariance matrix K[i,j] = k(X[i], Y[j]) on the MXU path.
+    """Full covariance matrix K[i,j] = k(X[i], Y[j]) on the GEMM path.
 
     Replaces the reference's OpenMP pairwise loop
     (lib/GaussianProcess.cpp:384-402)."""
@@ -669,7 +673,7 @@ class GaussianARD(Kernel):
         k = scale^2 exp(-0.5 sum_d (x_d - y_d)^2 / sigmas_d^2)
 
     Gram path: rescale inputs by 1/sigmas then reuse the GEMM sqdist trick
-    — still one MXU contraction.  ``sigmas`` is a (d,) leaf."""
+    — still one GEMM contraction.  ``sigmas`` is a (d,) leaf."""
 
     sigmas: Any  # (d,)
     scale: Any = 1.0

@@ -1,3 +1,3 @@
-"""Numerics backend: PSD-safe linalg, blocked Cholesky, Pallas kernels."""
+"""Numerics backend: PSD-safe linalg, blocked Cholesky and solves."""
 
-from . import blocked, linalg, pallas_gram  # noqa: F401
+from . import blocked, linalg  # noqa: F401

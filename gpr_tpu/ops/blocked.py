@@ -1,22 +1,22 @@
-"""Blocked (recursive) Cholesky + triangular solve for TPU.
+"""Blocked (recursive) Cholesky + triangular solve.
 
-XLA's stock ``jnp.linalg.cholesky`` on TPU is latency-dominated: its inner
-loop factorizes narrow panels and reaches ~10% of matmul throughput at
-n=8k (measured on v5e — see bench.py).  Because shapes are static under
-``jit`` we can instead recurse at *trace time*:
+A stock Cholesky whose inner loop factorizes narrow panels is latency
+bound at large n.  Because shapes are static under ``jit`` we can instead
+recurse at *trace time*:
 
     [[A11, .  ],      L11 = chol(A11)
      [A21, A22]]  ->  L21 = A21 L11^-T            (triangular solve)
                       L22 = chol(A22 - L21 L21^T) (trailing GEMM update)
 
 Every level splits the matrix in half, so ~2/3 of the flops land in the
-trailing-update GEMMs (pure MXU work) and the sequential part shrinks
+trailing-update GEMMs and the sequential part shrinks
 geometrically.  Exact flop count n^3/3 — no masking waste.  This is the
 numerics replacement for the reference's LAPACK ``dpotrf`` path
 (reference include/LAPACKUtils.h:59-73).
 
 ``solve_triangular_blocked`` recurses the same way so the solve's matmul
-fraction also rides the MXU.
+fraction also runs as GEMMs.  Whether this recursion beats one vendor
+``potrf`` call on a given card is a measurement (PERF.md), not a premise.
 """
 
 from __future__ import annotations
@@ -28,11 +28,9 @@ from ..utils.config import matmul_precision
 
 
 def _default_leaf() -> int:
-    """Precision-dependent recursion leaf (measured v5e, n=8192):
-    at the fast 'default' tier small leaves win (256: 6.2 ms vs 1024:
-    7.2 ms); at the f32-grade 'high' tier the slower GEMMs shift the
-    balance to bigger leaves (1024: 6.7 ms vs 256: 8.8 ms).
-    GPR_CHOL_LEAF overrides for on-chip A/B."""
+    """Precision-dependent recursion leaf: cheap GEMMs at the 'default'
+    tier favour small leaves, f32-grade GEMMs bigger ones.  Not yet tuned
+    on the GPU; GPR_CHOL_LEAF overrides for on-chip A/B."""
     import os
 
     env = os.environ.get("GPR_CHOL_LEAF")
@@ -42,7 +40,7 @@ def _default_leaf() -> int:
 
 
 def _round_split(n: int, align: int = 128) -> int:
-    """Split point: half of n rounded up to the alignment (MXU tiles)."""
+    """Split point: half of n rounded up to the alignment (GEMM tiles)."""
     half = (n + 1) // 2
     return min(((half + align - 1) // align) * align, n - 1) if n > align else n // 2
 
@@ -67,9 +65,6 @@ def solve_triangular_blocked(
 
     n = L.shape[0]
     if n <= leaf:
-        # NOTE a leaf-inverse + GEMM variant for fat rhs was measured and
-        # REJECTED (chol n=8192: 9.7 ms vs 6.7 ms) — XLA's triangular
-        # solve already processes wide rhs near GEMM rate
         return jax.scipy.linalg.solve_triangular(L, B, lower=True)
     m = _round_split(n)
     L11, L21, L22 = L[:m, :m], L[m:, :m], L[m:, m:]
@@ -83,63 +78,26 @@ def solve_triangular_blocked(
     return jnp.concatenate([X1, X2], axis=0)
 
 
-_SYRK_BLOCK = 512
-
-
-def _syrk_tiles():
-    """(bm, bk) for the pallas syrk — GPR_SYRK_BM / GPR_SYRK_BK override
-    the 512x512 default for on-chip tile-shape A/B."""
-    import os
-
-    return (
-        int(os.environ.get("GPR_SYRK_BM", _SYRK_BLOCK)),
-        int(os.environ.get("GPR_SYRK_BK", _SYRK_BLOCK)),
-    )
-
-
-def _syrk_usable(m2: int, m: int, dtype) -> bool:
-    """The Pallas lower-triangle syrk applies when the trailing-update
-    shapes are tile-aligned, f32, and a real TPU is the backend."""
-    bm, bk = _syrk_tiles()
-    return (
-        dtype == jnp.float32
-        and m2 % bm == 0
-        and m % bk == 0
-        and jax.default_backend() == "tpu"
-    )
-
-
 _NT = (((1,), (1,)), ((), ()))  # X @ Y^T without a physical transpose
 
 
-def _solve_rt(L, B, leaf, i0, invs):
+def _solve_rt(L, B, leaf):
     """X with ``X @ L^T = B`` (B: (r, n)) — the factorization's column
     solve ``L21 = A21 @ L11^{-T}`` computed right-side so NO physical
-    transpose is materialized anywhere (on TPU a transpose is a full
-    HBM copy; the old ``solve(L, A21^T)^T`` form paid two per level).
-
-    Leaf solves apply the pallas-precomputed leaf inverse from ``invs``
-    as ONE full-rate MXU GEMM (MAGMA's TRSM-via-TRTRI scheme) instead of
-    an XLA triangular-solve custom-call chain; leaves without an inverse
-    fall back to the native right-side triangular solve."""
+    transpose is materialized anywhere (the ``solve(L, A21^T)^T`` form
+    pays two transposes per level)."""
     n = L.shape[0]
     if n <= leaf:
-        W = invs.get(i0) if invs is not None else None
-        if W is not None:
-            return jax.lax.dot_general(
-                B, W, _NT, preferred_element_type=B.dtype,
-                precision=matmul_precision(),
-            )
         return jax.lax.linalg.triangular_solve(
             L, B, left_side=False, lower=True, transpose_a=True
         )
     m = _round_split(n)
-    X1 = _solve_rt(L[:m, :m], B[:, :m], leaf, i0, invs)
+    X1 = _solve_rt(L[:m, :m], B[:, :m], leaf)
     rhs = B[:, m:] - jax.lax.dot_general(
         X1, L[m:, :m], _NT, preferred_element_type=B.dtype,
         precision=matmul_precision(),
     )
-    X2 = _solve_rt(L[m:, m:], rhs, leaf, i0 + m, invs)
+    X2 = _solve_rt(L[m:, m:], rhs, leaf)
     return jnp.concatenate([X1, X2], axis=1)
 
 
@@ -157,10 +115,9 @@ def _walk_blocks(b, i0, j0, out):
 
 def assemble_blocks_dus(b) -> jax.Array:
     """Assemble a block tree by writing each lower block into one zero
-    buffer with static-offset in-place DUS.  Trace-measured at n=16k on
-    v5e, the concat form materializes 134 MB pred masks + full-width
-    selects (~1.4 ms); this form writes each block exactly once into a
-    memset buffer."""
+    buffer with static-offset in-place DUS: each block is written exactly
+    once into a memset buffer, where the concat form may materialize pred
+    masks and full-width selects."""
     if not isinstance(b, tuple):
         return b
     blocks: list = []
@@ -205,90 +162,65 @@ def last_leaf(b) -> jax.Array:
     return b
 
 
-def _chol_rec(A, leaf, gemm_dtype, i0, invs, rt):
+def _chol_rec(A, leaf, gemm_dtype, rt):
     n = A.shape[0]
     if n <= leaf:
-        if invs is not None:
-            from .pallas_leaf import leaf_usable, leaf_cholesky_wi
-
-            interp = jax.default_backend() != "tpu"
-            if leaf_usable(n, A.dtype) or (
-                interp and n % 256 == 0 and n <= 1024
-            ):
-                # ONE pallas program factors the leaf AND emits its
-                # inverse (consumed by _solve_rt's GEMM leaf solves) —
-                # no XLA leaf-cholesky machinery, no separate TRTRI pass
-                L, invs[i0] = leaf_cholesky_wi(A, interpret=interp)
-                return L
         return jax.lax.linalg.cholesky(A, symmetrize_input=False)
     m = _round_split(n)
     A11 = A[:m, :m]
     A21 = A[m:, :m]
     A22 = A[m:, m:]
-    b11 = _chol_rec(A11, leaf, gemm_dtype, i0, invs, rt)
+    b11 = _chol_rec(A11, leaf, gemm_dtype, rt)
     L11 = assemble_blocks(b11)
-    if invs is not None or rt:
+    if rt:
         # right-side solve: no physical transpose of A21 or the result
-        L21 = _solve_rt(L11, A21, leaf, i0, invs)
+        L21 = _solve_rt(L11, A21, leaf)
     elif _flat_solve():
-        # ONE XLA triangular-solve custom call per level (its internal
-        # InvertDiagBlocks blocking) instead of the trace-time recursion
+        # ONE XLA triangular-solve call per level (its internal blocking)
+        # instead of the trace-time recursion
         L21 = jax.lax.linalg.triangular_solve(
             L11, A21.T, left_side=True, lower=True
         ).T
     else:
         # L21 = A21 L11^-T  ==  (L11^-1 A21^T)^T
         L21 = solve_triangular_blocked(L11, A21.T, lower=True, leaf=leaf).T
-    if gemm_dtype is None and _syrk_usable(n - m, m, A.dtype):
-        from .pallas_syrk import syrk_update
-
-        bm, bk = _syrk_tiles()
-        S22 = syrk_update(A22, L21, bm=bm, bk=bk)  # lower triangle only
+    if gemm_dtype is not None:
+        upd = jnp.matmul(
+            L21.astype(gemm_dtype),
+            L21.T.astype(gemm_dtype),
+            preferred_element_type=A.dtype,
+        ).astype(A.dtype)
     else:
-        if gemm_dtype is not None:
-            upd = jnp.matmul(
-                L21.astype(gemm_dtype),
-                L21.T.astype(gemm_dtype),
-                preferred_element_type=A.dtype,
-            ).astype(A.dtype)
-        else:
-            upd = jnp.matmul(
-                L21, L21.T, preferred_element_type=A.dtype,
-                precision=matmul_precision(),
-            )
-        S22 = A22 - upd
-    b22 = _chol_rec(S22, leaf, gemm_dtype, i0 + m, invs, rt)
+        upd = jnp.matmul(
+            L21, L21.T, preferred_element_type=A.dtype,
+            precision=matmul_precision(),
+        )
+    b22 = _chol_rec(A22 - upd, leaf, gemm_dtype, rt)
     return (b11, L21, b22)
 
 
 def cholesky_blocked_blocks(
     A: jax.Array, *, leaf: int = 0, gemm_dtype=None,
-    leaf_inverse: bool | None = None, right_solve: bool | None = None,
+    right_solve: bool | None = None,
 ):
     """Blocked Cholesky returning the UNASSEMBLED block tree (see
     :func:`assemble_blocks`).  This is what retry loops should carry:
     a ``lax.while_loop`` carry of the assembled factor forces the whole
-    concat tree to materialize every iteration (~4.3 ms at n=16k on v5e,
-    measured via trace diff); carrying the blocks and assembling once
-    after the loop keeps the zero-iteration success path copy-free."""
+    concat tree to materialize every iteration; carrying the blocks and
+    assembling once after the loop keeps the zero-iteration success path
+    copy-free."""
     if leaf <= 0:
         leaf = _default_leaf()
-    if leaf_inverse is None:
-        leaf_inverse = _leaf_inverse_default()
     if right_solve is None:
         right_solve = _right_solve_default()
-    invs = {} if leaf_inverse else None
-    return _chol_rec(A, leaf, gemm_dtype, 0, invs, right_solve)
+    return _chol_rec(A, leaf, gemm_dtype, right_solve)
 
 
 # Right-side (transpose-free) panel solves: the left-side form
-# solve(L11, A21.T).T pays a physical {1,0}->{0,1} layout copy of the A21
-# slice per level (~1.05 ms/level at n=16k, trace-measured); the
-# right-side lax triangular_solve consumes A21 in its native layout.
-# Default set by on-chip measurement (benchmarks/exp_safechol_overhead.py);
-# GPR_CHOL_RIGHT_SOLVE=1/0 and GPR_CHOL_LEAF_INV=1/0 override for A/B.
+# solve(L11, A21.T).T pays a physical layout copy of the A21 slice per
+# level; the right-side lax triangular_solve consumes A21 in its native
+# layout.  GPR_CHOL_RIGHT_SOLVE=1/0 overrides the default for A/B.
 _RIGHT_SOLVE_DEFAULT = False
-_LEAF_INVERSE_DEFAULT = False
 
 
 def _right_solve_default() -> bool:
@@ -300,22 +232,15 @@ def _right_solve_default() -> bool:
 
 def _flat_solve() -> bool:
     """GPR_CHOL_FLAT_SOLVE=1: panel solves as single XLA triangular-solve
-    custom calls (XLA's internal blocking) instead of the recursion."""
+    calls (XLA's internal blocking) instead of the recursion."""
     import os
 
     return os.environ.get("GPR_CHOL_FLAT_SOLVE", "0") not in ("0", "")
 
 
-def _leaf_inverse_default() -> bool:
-    import os
-
-    env = os.environ.get("GPR_CHOL_LEAF_INV")
-    return _LEAF_INVERSE_DEFAULT if env is None else env not in ("0", "")
-
-
 def cholesky_blocked(
     A: jax.Array, *, leaf: int = 0, gemm_dtype=None,
-    leaf_inverse: bool | None = None, right_solve: bool | None = None,
+    right_solve: bool | None = None,
 ) -> jax.Array:
     """Lower Cholesky factor of SPD ``A`` by trace-time recursion.
 
@@ -323,42 +248,16 @@ def cholesky_blocked(
     LAPACKUtils.h:59-73) this reads ONLY the lower triangle of ``A``: the
     leaves factor with ``symmetrize_input=False`` and every recursion
     read (A11 lower, the dense A21 block, A22 lower) lies on or below the
-    diagonal.  That contract lets the trailing Schur update skip the
-    strict-upper output tiles entirely: on TPU with 512-aligned f32
-    shapes it dispatches to ``ops.pallas_syrk.syrk_update`` (~47% fewer
-    update flops than the full ``L21 @ L21.T`` GEMM, which XLA has no
-    rank-k primitive to avoid); the Schur complement's upper triangle is
-    then UNDEFINED, which is invisible to the recursion by the same
-    contract.
-
-    ``leaf_inverse`` (auto on TPU/f32): invert each factored leaf once in
-    VMEM (``ops.pallas_leaf.tri_inv_leaf``) and run every column solve
-    right-side with leaf solves as plain GEMMs — no triangular-solve
-    custom-calls and no physical transposes on the critical path.  The
-    explicit leaf inverse is numerically safe here: leaves are diagonal
-    Schur blocks of a jitter-guarded SPD matrix, so their condition is
-    bounded by sqrt(cond(A)).
+    diagonal.
 
     ``gemm_dtype=jnp.bfloat16`` routes the trailing-update GEMM operands
-    through bf16 (f32 accumulation) — ~2x MXU throughput on v5e for the
-    ~2/3 of flops in the updates, at ~3-decimal-digit operand rounding.
-    The fast-policy option; leave None for parity work."""
-    if leaf <= 0:
-        leaf = _default_leaf()
-    if leaf_inverse is None:
-        # MEASURED OFF at leaf=1024 (v5e, n=16k): solve-as-GEMM leaf solves
-        # save ~2.3 ms of XLA triangular-solve machinery, but producing the
-        # inverses costs more — the fused factor+inverse leaf is 574 us vs
-        # XLA's 275 us leaf cholesky (the in-VMEM strip factorization's
-        # sequential latency dominates at 1024).  At SMALL leaves the
-        # balance flips (the strip leaf beats XLA 7 vs 13 us at 256) —
-        # round-3 A/B via GPR_CHOL_LEAF + GPR_CHOL_LEAF_INV
-        # (benchmarks/exp_chol_r3.py); see BENCHMARKS.md.
-        leaf_inverse = _leaf_inverse_default()
-    if right_solve is None:
-        right_solve = _right_solve_default()
-    invs = {} if leaf_inverse else None
-    return assemble_blocks(_chol_rec(A, leaf, gemm_dtype, 0, invs, right_solve))
+    through bf16 (f32 accumulation) at ~3-decimal-digit operand rounding.
+    A throughput option; leave None for parity work."""
+    return assemble_blocks(
+        cholesky_blocked_blocks(
+            A, leaf=leaf, gemm_dtype=gemm_dtype, right_solve=right_solve
+        )
+    )
 
 
 def _solve_r(L, B, leaf):
@@ -392,7 +291,7 @@ def cho_solve_blocked(L: jax.Array, B: jax.Array, *, leaf: int = 0) -> jax.Array
     if B.ndim == 1:
         return cho_solve_blocked(L, B[:, None], leaf=leaf)[:, 0]
     Bt = B.T  # (q, n): the cheap transpose
-    Yt = _solve_rt(L, Bt, leaf, 0, None)  # Y^T = B^T L^{-T}
+    Yt = _solve_rt(L, Bt, leaf)  # Y^T = B^T L^{-T}
     Xt = _solve_r(L, Yt, leaf)            # X^T = Y^T L^{-1}
     return Xt.T
 
@@ -404,11 +303,10 @@ def cholesky_rightlooking(
 
     Alternative schedule kept for study: a python loop over column panels
     carrying only the trailing Schur complement (6 ops per panel, maximal
-    GEMMs).  MEASURED SLOWER than :func:`cholesky_blocked` on v5e (n=8192:
-    14.7-22.8 ms vs 6.8 ms) — the strictly sequential panel chain defeats
-    XLA's ability to overlap independent subtree work in the recursive
-    DAG, and the per-panel trailing-slice copies add ~n^3/(3 panel) bytes
-    of traffic.  The recursive variant remains the dispatch default."""
+    GEMMs).  The strictly sequential panel chain gives XLA no independent
+    subtree work to overlap, and the per-panel trailing-slice copies add
+    ~n^3/(3 panel) bytes of traffic; the recursive variant is the
+    dispatch default."""
     n = A.shape[0]
     if n <= panel:
         return cholesky_blocked(A, leaf=leaf)
@@ -497,7 +395,7 @@ def _chol_into(A_cur, out, i0, leaf, gemm_dtype):
     s = A_cur.shape[0]
     if s <= leaf:
         # symmetrize_input=False honors the potrf('L') contract: the strict
-        # upper of a lower-contract input (tril Gram / syrk output) is
+        # upper of a lower-contract input (a Schur-complement update) is
         # undefined, and jnp.linalg.cholesky would average it in
         return out.at[i0 : i0 + s, i0 : i0 + s].set(
             jax.lax.linalg.cholesky(A_cur, symmetrize_input=False)
@@ -528,11 +426,7 @@ def cholesky_blocked_v2(
     """Buffer-threaded recursive Cholesky: identical math to
     :func:`cholesky_blocked` but L is written into ONE preallocated buffer
     with static-offset ``.at.set`` instead of concatenating at every
-    recursion level.  MEASURED SLIGHTLY SLOWER than v1 on v5e (n=8192:
-    10.3 ms vs 8.8 ms at the 'high' tier) — XLA already schedules the
-    concat assembly efficiently; together with the right-looking result
-    this pins the remaining gap to the solve/leaf dependency chain, not
-    data movement.  Kept for study; v1 remains the dispatch default."""
+    recursion level.  Kept for study; v1 remains the dispatch default."""
     n = A.shape[0]
     if n <= leaf:
         return jnp.linalg.cholesky(A)

@@ -1,12 +1,12 @@
 """PSD-safe linear algebra primitives.
 
-This is the TPU-native replacement for the reference's L0 numerics backend
+This is the replacement for the reference's L0 numerics backend
 (reference: include/LAPACKUtils.h — LAPACK dgetrf/dgetri/dpotrf/dpotri
 bindings, and lib/GaussianProcess.cpp:530-618 — four explicit-inverse
 strategies).  The single biggest deliberate design difference from the
 reference: we never form explicit inverses.  Everything is expressed as a
 Cholesky factorization + triangular solves, which is both numerically
-superior and maps onto the MXU as large batched GEMMs.
+superior and maps onto large GEMMs and the vendor solver libraries.
 
 Key entry points
 ----------------
@@ -38,7 +38,7 @@ from jax import lax
 # The bounds are the reference's, NOT the compute dtype's: log|A| is a sum
 # of logs and comfortably representable in f32 far beyond f32's own
 # log-range (+-88), which would otherwise clamp (and zero the gradient of)
-# the MLL complexity term for every realistic n on the f32 TPU tier.
+# the MLL complexity term for every realistic n in float32.
 _LDBL_LOG_MAX = 11356.523406294143  # log(LDBL_MAX), 80-bit extended
 
 
@@ -51,9 +51,9 @@ def add_diagonal(A: jax.Array, value) -> jax.Array:
     """A + value * I as a fusible masked add.
 
     ``value`` may be a scalar or batched (matching A's batch dims).  The
-    obvious ``A.at[idx, idx].add(v)`` lowers to an unfused copy + scatter
-    (~11 ms for n=16k f32 on v5e); the iota-mask form is a single fusible
-    elementwise pass XLA can sink into the consumer."""
+    obvious ``A.at[idx, idx].add(v)`` lowers to an unfused copy + scatter;
+    the iota-mask form is a single fusible elementwise pass XLA can sink
+    into the consumer (the Gram epilogue)."""
     n = A.shape[-1]
     rows = lax.broadcasted_iota(jnp.int32, (n, n), 0)
     cols = lax.broadcasted_iota(jnp.int32, (n, n), 1)
@@ -63,55 +63,17 @@ def add_diagonal(A: jax.Array, value) -> jax.Array:
     return A + jnp.where(rows == cols, value, jnp.zeros((), A.dtype))
 
 
-# size above which the recursive blocked Cholesky/solves (ops/blocked.py)
-# beat XLA's stock primitives on TPU (measured v5e: 1.6x at n=16k, and an
-# order of magnitude less compile time)
+# size from which single large matrices take the recursive blocked
+# Cholesky and solves (ops/blocked.py) instead of one stock call.  On the
+# H100 one cuSOLVER potrf measured faster (PERF.md); changing the route is
+# ROADMAP Speed item 1
 _BLOCKED_MIN_N = 1024
-
-
-def _chol_schedule() -> str:
-    """Large-matrix factorization schedule: 'fused' (ops/pallas_fullchol.py,
-    the whole factorization as ONE pallas dispatch — measured fastest on
-    v5e round 3), 'recursive' (ops/blocked.py, the round-1/2 default), or
-    'inplace' (ops/inplace_chol.py, the buffer-aliased wide-panel pallas
-    chain — measured negative result).  GPR_CHOL_SCHEDULE overrides for
-    on-chip A/B."""
-    import os
-
-    return os.environ.get("GPR_CHOL_SCHEDULE", "fused")
-
-
-def _inplace_usable(A: jax.Array) -> bool:
-    return (
-        A.ndim == 2
-        and A.dtype == jnp.float32
-        and A.shape[0] % 512 == 0
-        and _chol_schedule() == "inplace"
-    )
-
-
-def _fused_usable(A: jax.Array) -> bool:
-    if _chol_schedule() != "fused":
-        return False
-    from .pallas_fullchol import fused_usable
-
-    return fused_usable(A)
 
 
 def chol_lower(A: jax.Array) -> jax.Array:
     """Lower Cholesky factor, dispatching to the blocked kernel for large
     single matrices (batched inputs use the stock primitive)."""
     if A.ndim == 2 and A.shape[0] >= _BLOCKED_MIN_N:
-        if _fused_usable(A):
-            from .pallas_fullchol import cholesky_fused
-
-            return cholesky_fused(A)
-        if _inplace_usable(A):
-            from .inplace_chol import cholesky_inplace
-
-            return cholesky_inplace(
-                A, interpret=jax.default_backend() != "tpu"
-            )
         from .blocked import cholesky_blocked
 
         return cholesky_blocked(A)
@@ -158,8 +120,7 @@ def _diag_ok(L):
     # NaN/inf from a failed pivot propagates (via the column scaling and
     # trailing updates — only *, -, /, sqrt are involved) to EVERY later
     # diagonal entry, so the last one alone detects failure: an O(1)
-    # check instead of an O(n) strided diagonal gather over the 1 GB
-    # factor (measured ~several ms at n=16k on v5e).
+    # check instead of an O(n) strided diagonal gather over the factor.
     return jnp.all(jnp.isfinite(L[..., -1, -1]))
 
 
@@ -171,23 +132,10 @@ def _safe_cholesky_impl(A, initial_jitter, max_tries):
 
     # Large single matrices: factor to the UNASSEMBLED block tree and carry
     # THAT through the retry loop — a while_loop carry of the assembled
-    # factor forces the concat-assembly tree to materialize (+~4.3 ms at
-    # n=16k on v5e, trace-measured); assembling once after the loop lets
-    # XLA elide or fuse the concats into the consumers/outputs.
-    if A.ndim == 2 and A.shape[0] >= _BLOCKED_MIN_N and _fused_usable(A):
-        from .pallas_fullchol import cholesky_fused
-
-        factor = cholesky_fused
-        ok_of = _diag_ok  # a failed pivot NaN-poisons every later panel
-        finish = lambda L: L
-    elif A.ndim == 2 and A.shape[0] >= _BLOCKED_MIN_N and _inplace_usable(A):
-        from .inplace_chol import cholesky_inplace
-
-        interp = jax.default_backend() != "tpu"
-        factor = lambda M: cholesky_inplace(M, interpret=interp)
-        ok_of = _diag_ok  # a failed pivot NaN-poisons every later panel
-        finish = lambda L: L
-    elif A.ndim == 2 and A.shape[0] >= _BLOCKED_MIN_N:
+    # factor forces the concat-assembly tree to materialize; assembling
+    # once after the loop lets XLA elide or fuse the concats into the
+    # consumers/outputs.
+    if A.ndim == 2 and A.shape[0] >= _BLOCKED_MIN_N:
         from .blocked import assemble_blocks, cholesky_blocked_blocks, last_leaf
 
         factor = cholesky_blocked_blocks
@@ -221,8 +169,8 @@ def _safe_cholesky_impl(A, initial_jitter, max_tries):
         ok, tries, j, L = state
         # jitter scale from a HEAD SLICE of the diagonal: the full-diagonal
         # gather is loop-invariant, so XLA hoists it out of the retry loop
-        # and the SUCCESS path pays it too (~0.24 ms strided gather over the
-        # 1 GB matrix at n=16k, trace-measured).  The mean over the first
+        # and the SUCCESS path pays it too (a strided gather over the whole
+        # matrix).  The mean over the first
         # <=1024 diagonal entries is an equally good scale heuristic (the
         # reference uses a *fixed* jitter, SparseGaussianProcess.h:174-180)
         # and its hoisted cost is microseconds.
@@ -251,9 +199,9 @@ def _safe_cholesky_impl(A, initial_jitter, max_tries):
 
     # The FACTOR itself is a loop carry: on success the loop runs zero
     # iterations and returns (L0, 0) with the carry buffer aliased to L0 —
-    # no branch-boundary copy.  (A lax.cond formulation was measured to add
-    # ~4.7 ms at n=16k on v5e — XLA materializes the branch outputs into
-    # fresh buffers even when the taken branch is the identity on L0.)
+    # no branch-boundary copy.  (A lax.cond formulation makes XLA
+    # materialize the branch outputs into fresh buffers even when the
+    # taken branch is the identity on L0.)
     # Derive the jitter init from ok0 rather than a fresh constant: under
     # shard_map a constant carry is axis-UNvarying while the body output
     # varies over the manual axes, which while_loop rejects.
@@ -319,28 +267,9 @@ def safe_cholesky(
     )
 
 
-def _solve_schedule() -> str:
-    """Large-factor solve schedule: 'blocked' (ops/blocked.py recursive
-    solves, the round-1 default) or 'narrow' (ops/pallas_solve.py streaming
-    substitution — one pallas pass per sweep, skinny rhs only).
-    GPR_SOLVE_SCHEDULE overrides for on-chip A/B."""
-    import os
-
-    return os.environ.get("GPR_SOLVE_SCHEDULE", "blocked")
-
-
 def cho_solve(L: jax.Array, b: jax.Array) -> jax.Array:
     """Solve A x = b where A = L L^T (blocked solves for large factors)."""
     if L.ndim == 2 and L.shape[0] >= _BLOCKED_MIN_N:
-        if _solve_schedule() == "narrow":
-            from .pallas_solve import cho_solve_narrow, solve_narrow_usable
-
-            q = 1 if b.ndim == 1 else b.shape[-1]
-            interp = jax.default_backend() != "tpu"
-            if solve_narrow_usable(
-                L.shape[0], q, L.dtype, allow_interpret=interp
-            ):
-                return cho_solve_narrow(L, b, interpret=interp)
         from .blocked import cho_solve_blocked
 
         return cho_solve_blocked(L, b)
@@ -379,7 +308,11 @@ def pinv(A: jax.Array, epsilon: float | None = None) -> jax.Array:
     U, s, Vh = jnp.linalg.svd(A, full_matrices=True)
     s_inv = jnp.where(s <= epsilon, 0.0, 1.0 / jnp.where(s <= epsilon, 1.0, s))
     k = s.shape[0]
-    return (Vh.T[:, :k] * s_inv[None, :]) @ U.T[:k, :]
+    from ..utils.config import matmul_precision
+
+    return jnp.matmul(
+        Vh.T[:, :k] * s_inv[None, :], U.T[:k, :], precision=matmul_precision()
+    )
 
 
 def symmetrize(A: jax.Array) -> jax.Array:

@@ -1,23 +1,23 @@
 """Distributed Gram + Cholesky + solve over a device mesh (block rows).
 
-The TPU-native scale-out for the GP's n axis (SURVEY.md §5.7: "sharding the
-Gram matrix and Cholesky across chips — block-row distribution over ICI").
+The scale-out for the GP's n axis (SURVEY.md §5.7: "sharding the Gram
+matrix and Cholesky across chips — block-row distribution").
 The reference's only n-axis story is OpenMP threads on one host
 (lib/GaussianProcess.cpp:384-402); here n=16k+ Gram rows are sharded over a
-1-D mesh and the factorization proceeds panel-by-panel with ICI
+1-D mesh and the factorization proceeds panel-by-panel with
 collectives:
 
   for each device-block column k (static loop, D iterations):
-    1. all_gather the column block C = K[:, k]           (n x nb over ICI)
+    1. all_gather the column block C = K[:, k]           (n x nb)
     2. every device redundantly factors the diagonal block and forms the
        panel  P = C_below chol(C_kk)^-T                  (O(n nb^2), 3/D
        redundancy — the trailing update dominates)
-    3. local trailing update  K_local -= P_local P_right^T  (pure MXU GEMM,
+    3. local trailing update  K_local -= P_local P_right^T  (pure GEMM,
        perfectly parallel — this is ~n^3/3 total flops)
 
 The forward/backward substitutions broadcast each solved row-block with a
 psum-mask (owner computes, psum replicates).  All collectives are inserted
-by shard_map over the mesh axis; on a v5p/v5e pod slice they ride ICI.
+by shard_map over the mesh axis; XLA hands them to NCCL on GPUs.
 """
 
 from __future__ import annotations

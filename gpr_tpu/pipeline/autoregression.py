@@ -18,7 +18,7 @@ include/AutoRegression.h:20-205).  Semantics preserved exactly:
     stride even with heterogeneous batches (AutoRegression.h:176-183);
   * persistence as a single MatrixIO file (reference AutoRegression.h:36-44).
 
-TPU-first difference: the reference loops over features and solves one
+Difference from the reference: the reference loops over features and solves one
 BDCSVD per feature (AutoRegression.h:79-107); here the embedding is built
 once for ALL features as a (T-1, p, F) tensor with static shapes and the
 solve/rollout are batched einsums — no per-feature loop, no dynamic shapes.

@@ -30,7 +30,7 @@ get_target_image_from_series GetTargetImageFromImageSeries (:116-174)
 shuffle_image_data          ShuffleImageData (:665-698)
 ==========================  ==================================================
 
-Design notes (TPU-first, not an ITK translation):
+Design notes (accelerator-first, not an ITK translation):
 
 * Images are plain arrays; 2D spatial = (rows, cols) = (y, x), series =
   (t, y, x).  The reference's ``factorX``/``startX`` arguments refer to
@@ -44,8 +44,8 @@ Design notes (TPU-first, not an ITK translation):
   ``gaussian_filter``; the difference is O(1e-3) relative for sigma >= 1
   and irrelevant for the pipelines (blur_us, pyramids) that consume it.
 * The separable convolutions are expressed as small GEMM-able contractions
-  (a (W, 2r+1) patch matrix times the kernel) so XLA can fuse and the
-  VPU/MXU stays busy for large series.
+  (a (W, 2r+1) patch matrix times the kernel) so XLA can fuse them and
+  the device stays busy for large series.
 """
 
 from __future__ import annotations

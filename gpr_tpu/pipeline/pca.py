@@ -1,4 +1,4 @@
-"""PCA dimensionality reduction — TPU-native.
+"""PCA dimensionality reduction.
 
 Re-design of the reference ``PCA<T>`` (reference include/PCA.h:21-145).
 Semantics preserved exactly:
@@ -12,9 +12,9 @@ Semantics preserved exactly:
   * persistence to {prefix}Mean.bin / Sigma.bin / U.bin in the reference's
     MatrixIO format (PCA.h:126-134).
 
-TPU-first difference: for d >> N (the production regime) the thin SVD is
-computed via the N x N Gram matrix  X^T X = V S^2 V^T  — one large GEMM that
-lands on the MXU plus an O(N^3) eigendecomposition of a small matrix —
+Difference from the reference: for d >> N (the production regime) the thin
+SVD is computed via the N x N Gram matrix  X^T X = V S^2 V^T  — one large
+GEMM plus an O(N^3) eigendecomposition of a small matrix —
 instead of the reference's BDCSVD of the full d x N matrix (PCA.h:41).
 """
 
@@ -122,7 +122,7 @@ def fit_pca(X, gram_threshold: int = 4096) -> PCAModel:
     """Fit the PCA basis on data X (d, N), columns = samples.
 
     Uses the Gram trick (eigh of X^T X, size N x N) when d > N — the
-    TPU-native path: one (N, d) x (d, N) GEMM on the MXU — and a direct thin
+    accelerator path: one (N, d) x (d, N) GEMM — and a direct thin
     SVD otherwise.  Matches the reference's 1/sqrt(N) scaling (PCA.h:44).
     """
     X = jnp.asarray(X)

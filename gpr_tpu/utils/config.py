@@ -1,13 +1,12 @@
 """Global dtype / precision policy for gpr_tpu.
 
 The reference library (agiger/GPR) is templated over float/double and mixes
-long-double for determinants (reference: include/Likelihood.h:48,111). On TPU
-we instead run a two-tier policy:
+long-double for determinants (reference: include/Likelihood.h:48,111). Here
+a two-tier policy:
 
   * ``parity``  — float64 everywhere (requires ``jax_enable_x64``); used by the
     golden tests that reproduce the reference's numerical results.
-  * ``fast``    — float32 master arrays with bfloat16 MXU matmuls where safe;
-    the production TPU path.
+  * ``fast``    — float32 master arrays; the production accelerator path.
 
 The policy only controls *defaults*; every public function also accepts
 explicit ``dtype=`` overrides.
@@ -26,7 +25,7 @@ import jax.numpy as jnp
 class Policy:
     name: str
     default_dtype: jnp.dtype
-    # dtype accumulated in on the MXU for matmuls
+    # dtype matmuls accumulate in
     accum_dtype: jnp.dtype
 
 
@@ -75,25 +74,41 @@ def policy_scope(name: str):
 # ---------------------------------------------------------------------------
 # matmul precision policy
 # ---------------------------------------------------------------------------
-# On TPU v5e, f32 matmuls at jax's DEFAULT precision round operands to
-# bf16 — measured 2.4e-3 relative error at m=4096, enough to break
-# Gram-matrix conditioning and posterior parity.  Tiers measured on v5e:
-#   default  2.4e-3 rel err  (1 bf16 pass,  fastest)
-#   high     1.3e-5 rel err  (bf16x3 ~ f32-grade, ~2x default cost)
-#   highest  5.8e-7 rel err  (bf16x6 = full f32, ~3x default cost)
-# The numerics core defaults to "high" — f32-grade accuracy at ~2/3 the
-# cost of full f32; switch to "highest" for bit-level parity studies or
-# "default" for throughput experiments.
+# Every contraction of the numerics core (Gram GEMM, blocked-Cholesky
+# trailing updates and panel solves, prediction GEMVs) passes
+# ``precision=matmul_precision()``.  On a GPU with tensor cores, float32
+# dots at jax's "default" and "high" tiers both run in TF32 (10-bit
+# mantissa, ~1e-3 relative error): too coarse for the cancelling
+# |x|^2 + |y|^2 - 2 x.y Gram identity and for the trailing Schur updates,
+# where it can fail pivots and make ``safe_cholesky`` add jitter.  The
+# default is therefore "highest" (full float32).  Besides the three tiers,
+# the name of any ``jax.lax.DotAlgorithmPreset`` (e.g. "BF16_BF16_F32_X3",
+# "TF32_TF32_F32_X3") selects that dot algorithm; such presets take float32
+# operands only.  The measured error and rate of each on the card are in
+# PERF.md.
 
-_matmul_precision = "high"
+_TIERS = ("default", "high", "highest")
+_matmul_precision = "highest"
+
+
+def _resolve(p: str):
+    if p in _TIERS:
+        return p
+    try:
+        return jax.lax.DotAlgorithmPreset[p]
+    except KeyError:
+        raise ValueError(f"unknown matmul precision {p!r}") from None
 
 
 def set_matmul_precision(p: str) -> None:
+    """Set the core's contraction precision: a tier name or the name of a
+    ``jax.lax.DotAlgorithmPreset``."""
     global _matmul_precision
-    if p not in ("default", "high", "highest"):
-        raise ValueError(f"unknown matmul precision {p!r}")
+    _resolve(p)
     _matmul_precision = p
 
 
-def matmul_precision() -> str:
-    return _matmul_precision
+def matmul_precision():
+    """The ``precision=`` argument every core contraction passes: the tier
+    string, or the ``DotAlgorithmPreset`` a preset name maps to."""
+    return _resolve(_matmul_precision)

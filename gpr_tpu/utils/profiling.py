@@ -8,7 +8,7 @@ artifacts plus proper device tracing:
   * :class:`StageTimer` — named stages, CSV dump in the reference's
     comma-separated single-line format;
   * :func:`trace` — context manager around ``jax.profiler`` producing a
-    TensorBoard-loadable trace directory (XLA op breakdown, MXU busy time);
+    TensorBoard-loadable trace directory (XLA op breakdown, device busy time);
   * :func:`device_memory_stats` — live HBM usage per device.
 """
 
@@ -51,7 +51,7 @@ class StageTimer:
 @contextlib.contextmanager
 def trace(log_dir: str):
     """jax.profiler trace scope: inspect with TensorBoard's profile plugin
-    (XLA op timeline, per-op FLOPs, MXU utilization)."""
+    (XLA op timeline, per-op FLOPs, device busy time)."""
     import jax
 
     jax.profiler.start_trace(log_dir)

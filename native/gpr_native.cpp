@@ -1,6 +1,6 @@
 // gpr_tpu native runtime: threaded image/matrix loaders.
 //
-// TPU-native equivalent of the reference's native data path — the C++
+// The equivalent of the reference's native data path — the C++
 // DataParser image-parsing loops (reference include/DataParser.h:536-613)
 // and the MatrixIO binary codec (reference lib/MatrixIO.cpp:38-100) — built
 // as a small C library driven from Python via ctypes.  The feature pipeline

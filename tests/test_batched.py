@@ -9,61 +9,32 @@ import pytest
 
 import gpr_tpu
 from gpr_tpu.gp import batched, exact
+from gpr_tpu.gp import likelihood as lk
 
 
 def test_mll_batched_grad_matches_stock_path():
-    """round 4: factor_solve_batched_diff's custom_vjp (Cholesky + solve
-    pullbacks in batched GEMMs) must reproduce the stock-potrf path's
-    gradients — this is what lets mll_batched default to the fast
-    kernels under jax.grad."""
+    """The fleet MLL's gradient (one batched Cholesky under jax.grad) must
+    equal the sum of the per-member ``likelihood.mll_scalar`` gradients —
+    the dense single-GP path, member by member."""
     import jax
 
     rng = np.random.default_rng(3)
-    B, n, d = 2, 64, 3
-    X = jnp.asarray(rng.standard_normal((B, n, d)).astype(np.float32))
-    Y = jnp.asarray(np.sin(np.asarray(X).sum(-1, keepdims=True)).astype(np.float32))
+    B, n, d = 3, 64, 3
+    X = jnp.asarray(rng.standard_normal((B, n, d)))
+    Y = jnp.asarray(np.sin(np.asarray(X).sum(-1, keepdims=True)))
 
-    def loss(params, use_crout):
-        s, sc = params
-        k = gpr_tpu.Gaussian(s, sc)
-        return jnp.sum(batched.mll_batched(k, X, Y, 0.2, use_crout=use_crout))
+    def fleet(p):
+        return jnp.sum(batched.mll_batched(gpr_tpu.Gaussian(p[0], p[1]), X, Y, 0.2))
 
-    p0 = (jnp.asarray(1.7), jnp.asarray(0.9))
-    v_fast, g_fast = jax.value_and_grad(lambda p: loss(p, True))(p0)
-    v_ref, g_ref = jax.value_and_grad(lambda p: loss(p, False))(p0)
-    np.testing.assert_allclose(float(v_fast), float(v_ref), rtol=1e-5)
-    for a, b in zip(g_fast, g_ref):
-        np.testing.assert_allclose(float(a), float(b), rtol=1e-3, atol=1e-5)
+    def members(p):
+        k = gpr_tpu.Gaussian(p[0], p[1])
+        return sum(lk.mll_scalar(k, X[b], Y[b], 0.2) for b in range(B))
 
-
-def test_mll_batched_grad_fused_branch(monkeypatch):
-    """ADVICE round 4: with GPR_FLEET_FUSED_MAX_N set, the fused
-    one-dispatch fleet branch must stay differentiable
-    (factor_solve_fused_diff carries the same custom_vjp pullbacks as
-    the panel-stepped path)."""
-    import importlib
-
-    import jax
-
-    from gpr_tpu.ops import pallas_batched
-
-    monkeypatch.setattr(pallas_batched, "_FLEET_FUSED_MAX_N", 512)
-    rng = np.random.default_rng(7)
-    B, n, d = 2, 64, 3
-    X = jnp.asarray(rng.standard_normal((B, n, d)).astype(np.float32))
-    Y = jnp.asarray(np.sin(np.asarray(X).sum(-1, keepdims=True)).astype(np.float32))
-
-    def loss(params, use_crout):
-        s, sc = params
-        k = gpr_tpu.Gaussian(s, sc)
-        return jnp.sum(batched.mll_batched(k, X, Y, 0.2, use_crout=use_crout))
-
-    p0 = (jnp.asarray(1.7), jnp.asarray(0.9))
-    v_fused, g_fused = jax.value_and_grad(lambda p: loss(p, True))(p0)
-    v_ref, g_ref = jax.value_and_grad(lambda p: loss(p, False))(p0)
-    np.testing.assert_allclose(float(v_fused), float(v_ref), rtol=1e-5)
-    for a, b in zip(g_fused, g_ref):
-        np.testing.assert_allclose(float(a), float(b), rtol=1e-3, atol=1e-5)
+    p0 = jnp.asarray([1.7, 0.9])
+    v_fleet, g_fleet = jax.value_and_grad(fleet)(p0)
+    v_ref, g_ref = jax.value_and_grad(members)(p0)
+    np.testing.assert_allclose(float(v_fleet), float(v_ref), rtol=1e-10)
+    np.testing.assert_allclose(np.asarray(g_fleet), np.asarray(g_ref), rtol=1e-8)
 
 
 def test_fit_mle_batched_recovers_per_member_params():
@@ -83,39 +54,18 @@ def test_fit_mle_batched_recovers_per_member_params():
 
     k0 = gpr_tpu.Gaussian(jnp.asarray(1.2), jnp.asarray(1.0))
     kb, res = batched.fit_mle_batched(
-        k0, X, Y, 0.1, iterations=60, learning_rate=0.1, use_crout=False
+        k0, X, Y, 0.1, iterations=60, learning_rate=0.1
     )
     assert res.params.shape == (B, 2)
     m0 = batched.mll_batched(
         gpr_tpu.Gaussian(jnp.full((B,), 1.2), jnp.full((B,), 1.0)),
-        X, Y, 0.1, batched_kernel=True, use_crout=False,
+        X, Y, 0.1, batched_kernel=True,
     )
-    m1 = batched.mll_batched(
-        kb, X, Y, 0.1, batched_kernel=True, use_crout=False
-    )
+    m1 = batched.mll_batched(kb, X, Y, 0.1, batched_kernel=True)
     # every member's own mll improved, and the two members diverged
     assert np.all(np.asarray(m1) > np.asarray(m0))
     s = np.asarray(res.params)[:, 0]
     assert abs(s[0] - s[1]) > 0.1
-
-
-def test_crout2_two_level_matches_numpy():
-    """GPR_FLEET_DIAG=crout2 (two-level diag: 32-sub-block crout sweeps +
-    GEMM corrections) — measured fleet negative kept in-tree; must stay
-    correct."""
-    import jax
-
-    from gpr_tpu.ops.pallas_batched import _crout_blocked_L
-
-    rng = np.random.default_rng(0)
-    B, p = 3, 128
-    Bm = rng.standard_normal((B, p, p)).astype(np.float32)
-    D = Bm @ Bm.transpose(0, 2, 1) + p * np.eye(p, dtype=np.float32)
-    L = np.asarray(jax.jit(
-        lambda d: _crout_blocked_L(d, 32, True))(jnp.asarray(D)))
-    ref = np.linalg.cholesky(D.astype(np.float64))
-    assert np.abs(L - ref).max() / np.abs(ref).max() < 1e-4
-from gpr_tpu.gp import likelihood as lk
 
 
 def _fleet(B=4, n=30, d=2, q=2, seed=0):
@@ -209,143 +159,6 @@ def test_fleet_sharded_indivisible_rejected():
     X, Y = _fleet(B=6, n=10)
     with pytest.raises(ValueError):
         batched.fit_batched_sharded(gpr_tpu.Gaussian(1.0), X, Y, sigma=0.1)
-
-
-class TestCroutFleet:
-    """ops/pallas_batched: the fleet factorizer (interpret mode on CPU)."""
-
-    def _spd(self, B, n, seed=0, dtype=jnp.float32):
-        rng = np.random.default_rng(seed)
-        G = rng.standard_normal((B, n, n))
-        A = G @ np.swapaxes(G, 1, 2) + n * np.eye(n)
-        return jnp.asarray(A, dtype)
-
-    def test_crout_chol_wi(self):
-        from gpr_tpu.ops import pallas_batched as pb
-
-        A = self._spd(6, 64)
-        L, W = pb.crout_chol_wi(A, interpret=True)
-        ref = np.linalg.cholesky(np.asarray(A, np.float64))
-        np.testing.assert_allclose(np.asarray(L), ref, rtol=0, atol=2e-4 * 64)
-        eye = np.einsum("bij,bjk->bik", np.asarray(W), ref)
-        np.testing.assert_allclose(eye, np.broadcast_to(np.eye(64), eye.shape),
-                                   atol=5e-4)
-        # strict uppers exactly zero
-        assert not np.any(np.triu(np.asarray(L), 1))
-
-    def test_crout_reads_lower_only(self):
-        from gpr_tpu.ops import pallas_batched as pb
-
-        A = self._spd(3, 32)
-        junk = A.at[:].set(jnp.where(jnp.tril(jnp.ones((32, 32))) > 0, A, 777.0))
-        L0, _ = pb.crout_chol_wi(A, interpret=True)
-        L1, _ = pb.crout_chol_wi(junk, interpret=True)
-        np.testing.assert_array_equal(np.asarray(L0), np.asarray(L1))
-
-    def test_cholesky_batched_vs_xla(self):
-        from gpr_tpu.ops import pallas_batched as pb
-
-        A = self._spd(4, 384, seed=3)
-        L = pb.cholesky_batched(A, panel=128, interpret=True)
-        ref = np.linalg.cholesky(np.asarray(A, np.float64))
-        np.testing.assert_allclose(np.asarray(L), ref, rtol=0,
-                                   atol=2e-3)
-        assert not np.any(np.triu(np.asarray(L), 1))
-
-    @pytest.mark.slow
-    def test_cho_solve_batched(self):
-        from gpr_tpu.ops import pallas_batched as pb
-
-        A = self._spd(3, 256, seed=5)
-        rngl = np.random.default_rng(7)
-        Bm = jnp.asarray(rngl.standard_normal((3, 256, 4)), jnp.float32)
-        L = pb.cholesky_batched(A, panel=128, interpret=True)
-        X = pb.cho_solve_batched(L, Bm, interpret=True)
-        ref = np.linalg.solve(np.asarray(A, np.float64), np.asarray(Bm, np.float64))
-        np.testing.assert_allclose(np.asarray(X), ref, rtol=0, atol=5e-3)
-
-    def test_fit_batched_use_crout_matches(self):
-        X, Y = _fleet(B=2, n=128, d=2, q=1)
-        X = X.astype(jnp.float32)
-        Y = Y.astype(jnp.float32)
-        k = gpr_tpu.Gaussian(1.2, 0.9)
-        ref = batched.fit_batched(k, X, Y, sigma=0.1, use_crout=False)
-        got = batched.fit_batched(k, X, Y, sigma=0.1, use_crout=True)
-        np.testing.assert_allclose(np.asarray(got.alpha), np.asarray(ref.alpha),
-                                   rtol=0, atol=2e-3)
-        np.testing.assert_allclose(np.asarray(got.L), np.asarray(ref.L),
-                                   rtol=0, atol=2e-3)
-
-    @pytest.mark.slow
-    def test_winv_reuse_matches(self):
-        from gpr_tpu.ops import pallas_batched as pb
-
-        A = self._spd(2, 256, seed=9)
-        rngl = np.random.default_rng(11)
-        Bm = jnp.asarray(rngl.standard_normal((2, 256, 3)), jnp.float32)
-        L, W = pb.cholesky_batched(A, panel=128, interpret=True,
-                                   return_winv=True)
-        assert W.shape == (2, 2, 128, 128)
-        x0 = pb.cho_solve_batched(L, Bm, interpret=True)
-        x1 = pb.cho_solve_batched(L, Bm, interpret=True, winv=W)
-        np.testing.assert_allclose(np.asarray(x1), np.asarray(x0),
-                                   rtol=0, atol=1e-5)
-
-    @pytest.mark.slow
-    def test_factor_solve_fused(self):
-        from gpr_tpu.ops import pallas_batched as pb
-
-        A = self._spd(3, 384, seed=13)
-        rngl = np.random.default_rng(17)
-        Bm = jnp.asarray(rngl.standard_normal((3, 384, 4)), jnp.float32)
-        L, X = pb.factor_solve_fused(A, Bm, interpret=True)
-        refL = np.linalg.cholesky(np.asarray(A, np.float64))
-        refX = np.linalg.solve(np.asarray(A, np.float64),
-                               np.asarray(Bm, np.float64))
-        np.testing.assert_allclose(np.asarray(L), refL, rtol=0, atol=2e-3)
-        np.testing.assert_allclose(np.asarray(X), refX, rtol=0, atol=1e-3)
-        assert not np.any(np.triu(np.asarray(L), 1))
-
-    def test_fused_reads_lower_only(self):
-        from gpr_tpu.ops import pallas_batched as pb
-
-        A = self._spd(2, 128)
-        Bm = jnp.ones((2, 128, 2), jnp.float32)
-        junk = jnp.where(jnp.tril(jnp.ones((128, 128))) > 0, A, -55.0)
-        L0, X0 = pb.factor_solve_fused(A, Bm, interpret=True)
-        L1, X1 = pb.factor_solve_fused(junk, Bm, interpret=True)
-        np.testing.assert_array_equal(np.asarray(L0), np.asarray(L1))
-        np.testing.assert_array_equal(np.asarray(X0), np.asarray(X1))
-
-
-def test_fleet_sharded_crout_path():
-    """shard_map'd fleet fit with the pallas factorizer forced (interpret):
-    each device's local shard runs the fused kernel."""
-    import jax
-
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    X, Y = _fleet(B=8, n=128)
-    X = X.astype(jnp.float32)
-    Y = Y.astype(jnp.float32)
-    k = gpr_tpu.Gaussian(1.2, 0.9)
-    fleet = batched.fit_batched_sharded(k, X, Y, sigma=0.1, use_crout=True)
-    ref = batched.fit_batched(k, X, Y, sigma=0.1, use_crout=False)
-    rel = float(
-        np.linalg.norm(np.asarray(fleet.alpha - ref.alpha))
-        / np.linalg.norm(np.asarray(ref.alpha))
-    )
-    assert rel < 1e-3
-
-
-def test_mll_batched_crout_matches():
-    X, Y = _fleet(B=3, n=128)
-    X = X.astype(jnp.float32)
-    Y = Y.astype(jnp.float32)
-    k = gpr_tpu.Gaussian(1.2, 0.9)
-    ref = batched.mll_batched(k, X, Y, sigma=0.3, use_crout=False)
-    got = batched.mll_batched(k, X, Y, sigma=0.3, use_crout=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4)
 
 
 def test_mll_batched_multioutput_matches_scalar():

@@ -115,7 +115,7 @@ def test_scaling_efficiency_helper():
 def test_scaling_harness_writes_artifact(tmp_path, monkeypatch):
     """benchmarks/bench_scaling.py (VERDICT r4 item 4): the multi-host
     efficiency harness runs on the suite's 8-virtual-device mesh and
-    emits the {devices, samples_per_s, efficiency} rows + SCALING.json —
+    emits the {devices, samples_per_s, efficiency} rows + the summary file —
     ready to produce the BASELINE '>= 80% linear 1 -> 2 hosts' figure
     the day real multi-chip hardware exists."""
     import json
@@ -266,8 +266,8 @@ def test_profiler_trace_writes(tmp_path):
 
 def test_chunked_sampler_matches_scan():
     """sample_hmc_chunked must reproduce sample_hmc: same key flow, same
-    math — every scan is python-unrolled in jitted chunks (the remote-TPU
-    compile workaround, BENCHMARKS.md).  The unrolled programs fuse
+    math — every scan is python-unrolled in jitted chunks (the
+    compile-time workaround).  The unrolled programs fuse
     differently than the scans, so agreement is to float rounding and only
     over SHORT runs — once a rounding difference flips one Metropolis
     accept, chains decorrelate (equal in distribution, not per-draw).

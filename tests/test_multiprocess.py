@@ -3,8 +3,8 @@
 Spawns two real OS processes that form one jax.distributed cluster (CPU
 backend, 4 virtual devices each = a global 8-device mesh across a process
 boundary).  Cross-process collectives run over the distributed runtime's
-gRPC/Gloo transport — the same mechanism DCN collectives use on
-multi-host TPU pods, which cannot be exercised in-process with virtual
+gRPC/Gloo transport — the mechanism cross-host collectives use on a
+multi-host cluster, which cannot be exercised in-process with virtual
 devices alone.
 
 Validates SURVEY.md §5.8's rebuild contract: jax.distributed bring-up,

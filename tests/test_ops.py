@@ -1,7 +1,7 @@
-"""Numerics-backend tests: safe Cholesky, blocked Cholesky/solves, Pallas
-Gram (interpret mode), pinv — the rebuild's analogue of the reference's
+"""Numerics-backend tests: safe Cholesky, blocked Cholesky/solves, the
+precision policy, pinv — the rebuild's analogue of the reference's
 InversionMethodsTest/LAPACKTest (Eigen-vs-LAPACK cross-validation becomes
-blocked-vs-stock and pallas-vs-XLA cross-checks)."""
+blocked-vs-stock cross-checks)."""
 
 import numpy as np
 import jax
@@ -14,8 +14,6 @@ from gpr_tpu.ops.blocked import (
     cholesky_blocked,
     solve_triangular_blocked,
 )
-from gpr_tpu.ops.pallas_gram import gaussian_gram, gram_pallas
-from gpr_tpu.kernels.kernels import Gaussian, RationalQuadratic, gram
 
 
 def _spd(n, seed=0, dtype=np.float64):
@@ -70,153 +68,6 @@ class TestBlockedCholesky:
         g_ref = jax.grad(lambda a: 0.5 * jnp.linalg.slogdet(a)[1])(A)
         sym = 0.5 * (g + g.T)  # cholesky grad is lower-triangular-biased
         np.testing.assert_allclose(np.asarray(sym), np.asarray(g_ref), atol=1e-8)
-
-
-class TestPallasGram:
-    def test_gaussian_matches_xla(self):
-        rng = np.random.default_rng(0)
-        X = rng.standard_normal((70, 5)).astype(np.float32)
-        Y = rng.standard_normal((45, 5)).astype(np.float32)
-        K1 = np.asarray(
-            gram_pallas(jnp.asarray(X), jnp.asarray(Y), 1.7, 0.9, interpret=True)
-        )
-        K2 = np.asarray(gram(Gaussian(1.7, 0.9), jnp.asarray(X), jnp.asarray(Y)))
-        np.testing.assert_allclose(K1, K2, atol=1e-5)
-
-    def test_rq_matches_xla(self):
-        rng = np.random.default_rng(1)
-        X = rng.standard_normal((30, 3)).astype(np.float32)
-        K1 = np.asarray(
-            gram_pallas(
-                jnp.asarray(X), jnp.asarray(X), 1.1, 0.8, 2.0, form="rq",
-                interpret=True,
-            )
-        )
-        K2 = np.asarray(
-            gram(RationalQuadratic(0.8, 1.1, 2.0), jnp.asarray(X))
-        )
-        # the pallas cross-term runs the f32-grade 'high' tier via the
-        # explicit bf16x3 split (hi*hi + hi*lo + lo*hi, dropping lo*lo);
-        # the XLA reference on CPU is f32-exact, so the comparison is at
-        # the tier's error class (~1e-5 relative), not f32 epsilon
-        np.testing.assert_allclose(K1, K2, atol=1e-4)
-
-    def test_sqdist_form(self):
-        rng = np.random.default_rng(2)
-        X = rng.standard_normal((20, 4)).astype(np.float32)
-        D = np.asarray(
-            gram_pallas(jnp.asarray(X), jnp.asarray(X), form="sqdist", interpret=True)
-        )
-        ref = ((X[:, None] - X[None]) ** 2).sum(-1)
-        # bf16x3 cross-term: tier-class tolerance (see test_rq_matches_xla)
-        np.testing.assert_allclose(D, ref, atol=1e-3)
-
-    def test_padding_boundaries(self):
-        """Sizes straddling tile boundaries must crop cleanly."""
-        rng = np.random.default_rng(3)
-        for n, m in ((255, 257), (256, 256), (1, 300)):
-            X = rng.standard_normal((n, 2)).astype(np.float32)
-            Y = rng.standard_normal((m, 2)).astype(np.float32)
-            K = np.asarray(
-                gaussian_gram(X, Y, sigma=1.0, scale=1.0, interpret=True)
-            )
-            assert K.shape == (n, m)
-            K2 = np.asarray(gram(Gaussian(1.0, 1.0), jnp.asarray(X), jnp.asarray(Y)))
-            # bf16x3 cross-term: tier-class tolerance (test_rq_matches_xla)
-            np.testing.assert_allclose(K, K2, atol=1e-4)
-
-    def test_fused_diagonal(self):
-        """diag adds on the GLOBAL i==j positions only (K + diag*I fused
-        into the Gram pass), including sizes that straddle tile crops."""
-        rng = np.random.default_rng(4)
-        for n in (64, 300):
-            X = rng.standard_normal((n, 3)).astype(np.float32)
-            K0 = np.asarray(gaussian_gram(X, sigma=1.3, scale=0.9, interpret=True))
-            K1 = np.asarray(
-                gaussian_gram(X, sigma=1.3, scale=0.9, diag=0.25, interpret=True)
-            )
-            np.testing.assert_allclose(K1, K0 + 0.25 * np.eye(n), atol=1e-6)
-
-    def test_fused_diagonal_rq(self):
-        rng = np.random.default_rng(5)
-        X = rng.standard_normal((40, 2)).astype(np.float32)
-        K0 = np.asarray(
-            gram_pallas(jnp.asarray(X), jnp.asarray(X), 1.1, 0.8, 2.0,
-                        form="rq", interpret=True)
-        )
-        K1 = np.asarray(
-            gram_pallas(jnp.asarray(X), jnp.asarray(X), 1.1, 0.8, 2.0,
-                        diag=0.5, form="rq", interpret=True)
-        )
-        np.testing.assert_allclose(K1, K0 + 0.5 * np.eye(40), atol=1e-6)
-
-
-class TestPallasSyrk:
-    """Lower-triangle SYRK trailing update (ops/pallas_syrk.py)."""
-
-    def test_lower_triangle_matches(self):
-        from gpr_tpu.ops.pallas_syrk import syrk_update
-
-        rng = np.random.default_rng(0)
-        m, k = 1024, 512
-        L21 = rng.standard_normal((m, k)).astype(np.float32)
-        A22 = rng.standard_normal((m, m)).astype(np.float32)
-        S = np.asarray(
-            syrk_update(jnp.asarray(A22), jnp.asarray(L21), interpret=True)
-        )
-        ref = A22.astype(np.float64) - L21.astype(np.float64) @ L21.T.astype(np.float64)
-        tl = np.tril_indices(m)
-        # 'high'-tier (bf16x3) error is relative to the operand/accumulation
-        # scale sqrt(k), not to the (possibly cancelled) result entries
-        err = np.max(np.abs(S[tl] - ref[tl])) / np.sqrt(k)
-        assert err < 5e-4, err
-
-    def test_highest_precision_tighter(self):
-        from gpr_tpu.ops.pallas_syrk import syrk_update
-
-        rng = np.random.default_rng(1)
-        m, k = 512, 512
-        L21 = rng.standard_normal((m, k)).astype(np.float32)
-        A22 = rng.standard_normal((m, m)).astype(np.float32)
-        S = np.asarray(
-            syrk_update(jnp.asarray(A22), jnp.asarray(L21),
-                        precision="highest", interpret=True)
-        )
-        ref = A22.astype(np.float64) - L21.astype(np.float64) @ L21.T.astype(np.float64)
-        tl = np.tril_indices(m)
-        err = np.max(np.abs(S[tl] - ref[tl])) / np.sqrt(k)
-        assert err < 5e-5, err
-
-    def test_shape_validation(self):
-        from gpr_tpu.ops.pallas_syrk import syrk_update
-
-        with np.testing.assert_raises(ValueError):
-            syrk_update(jnp.eye(100), jnp.ones((100, 512)), interpret=True)
-
-    def test_blocked_cholesky_syrk_path(self, monkeypatch):
-        """cholesky_blocked through the syrk dispatch (forced on, interpret
-        mode) must reproduce the stock factorization's lower triangle."""
-        import gpr_tpu.ops.pallas_syrk as ps
-        import gpr_tpu.ops.blocked as blk
-        import functools
-
-        monkeypatch.setattr(
-            blk, "_syrk_usable",
-            lambda m2, m, dtype: dtype == jnp.float32
-            and m2 % 512 == 0 and m % 512 == 0,
-        )
-        orig = ps.syrk_update
-        monkeypatch.setattr(
-            ps, "syrk_update", functools.partial(orig, interpret=True)
-        )
-        rng = np.random.default_rng(2)
-        n = 1024
-        X = rng.standard_normal((n, n)).astype(np.float32)
-        A = (X @ X.T / n + n * np.eye(n)).astype(np.float32)
-        L = np.asarray(blk.cholesky_blocked(jnp.asarray(A), leaf=512))
-        Lref = np.linalg.cholesky(A.astype(np.float64))
-        tl = np.tril_indices(n)
-        np.testing.assert_allclose(L[tl], Lref[tl], atol=5e-2, rtol=1e-3)
 
 
 class TestSafeCholesky:
@@ -303,68 +154,14 @@ class TestSafeCholesky:
         )
 
 
-class TestPallasCholesky:
-    """Experimental single-tile Pallas Cholesky (interpret mode)."""
-
-    @pytest.mark.parametrize("n", [128, 256])
-    def test_matches_numpy(self, n):
-        from gpr_tpu.ops.pallas_chol import cholesky_pallas
-
-        rng = np.random.default_rng(0)
-        A = rng.standard_normal((n, n)).astype(np.float32)
-        A = A @ A.T + n * np.eye(n, dtype=np.float32)
-        L = np.asarray(cholesky_pallas(jnp.asarray(A), interpret=True))
-        ref = np.linalg.cholesky(A)
-        assert np.abs(L - ref).max() / np.abs(ref).max() < 1e-5
-
-
-class TestPallasGramInFit:
-    def test_fit_parity(self):
-        """fit(use_pallas_gram=True) must reproduce the stock path."""
-        import gpr_tpu
-
-        X = np.linspace(0, 6, 50)
-        Y = np.sin(X)
-        g1 = gpr_tpu.fit(gpr_tpu.Gaussian(1.0), X, Y, sigma=0.1)
-        g2 = gpr_tpu.fit(
-            gpr_tpu.Gaussian(1.0), X, Y, sigma=0.1, use_pallas_gram=True
-        )
-        # the pallas kernel computes in f32; under the x64 test policy the
-        # stock path is f64 — compare at f32 fidelity
-        np.testing.assert_allclose(
-            np.asarray(g1.alpha), np.asarray(g2.alpha), atol=5e-3, rtol=1e-3
-        )
-
-
-class TestPallasCholeskyV2:
-    """Strip-panelled Pallas Cholesky (rank-sw MXU updates)."""
-
-    @pytest.mark.parametrize("n,sw", [(128, 8), (256, 8), (256, 16)])
-    def test_matches_numpy(self, n, sw):
-        from gpr_tpu.ops.pallas_chol import cholesky_pallas_v2
-
-        rng = np.random.default_rng(0)
-        A = rng.standard_normal((n, n)).astype(np.float32)
-        A = A @ A.T + n * np.eye(n, dtype=np.float32)
-        L = np.asarray(cholesky_pallas_v2(jnp.asarray(A), sw=sw, interpret=True))
-        ref = np.linalg.cholesky(A)
-        assert np.abs(L - ref).max() / np.abs(ref).max() < 1e-5
-
-    def test_bad_strip_width(self):
-        from gpr_tpu.ops.pallas_chol import cholesky_pallas_v2
-
-        with pytest.raises(ValueError):
-            cholesky_pallas_v2(jnp.eye(100), sw=8, interpret=True)
-
-
 class TestMatmulPrecisionPolicy:
     def test_default_is_high(self):
-        """v5e f32 matmuls at jax-default precision round operands to bf16
-        (~2e-3 rel err) — the numerics core must default to an f32-grade
-        tier (bf16x3 'high': 1.3e-5)."""
+        """The numerics core defaults to an f32-grade tier: on GPUs with
+        tensor cores 'default' and 'high' both run float32 dots in TF32
+        (~1e-3 relative error), so the default is 'highest'."""
         from gpr_tpu.utils import config as cfg
 
-        assert cfg.matmul_precision() == "high"
+        assert cfg.matmul_precision() == "highest"
 
     def test_switchable(self):
         from gpr_tpu.utils import config as cfg
@@ -375,7 +172,54 @@ class TestMatmulPrecisionPolicy:
             with pytest.raises(ValueError):
                 cfg.set_matmul_precision("bogus")
         finally:
-            cfg.set_matmul_precision("high")
+            cfg.set_matmul_precision("highest")
+
+    @pytest.mark.parametrize("name", ["default", "high", "highest"])
+    def test_tier_names_pass_through(self, name):
+        from gpr_tpu.utils import config as cfg
+
+        cfg.set_matmul_precision(name)
+        try:
+            assert cfg.matmul_precision() == name
+        finally:
+            cfg.set_matmul_precision("highest")
+
+    @pytest.mark.parametrize(
+        "name", ["BF16_BF16_F32_X3", "TF32_TF32_F32_X3", "F32_F32_F32"]
+    )
+    def test_preset_names_map_to_dot_algorithms(self, name):
+        from gpr_tpu.utils import config as cfg
+
+        cfg.set_matmul_precision(name)
+        try:
+            assert cfg.matmul_precision() is getattr(
+                jax.lax.DotAlgorithmPreset, name
+            )
+        finally:
+            cfg.set_matmul_precision("highest")
+
+    def test_bad_name_leaves_policy_unchanged(self):
+        from gpr_tpu.utils import config as cfg
+
+        with pytest.raises(ValueError):
+            cfg.set_matmul_precision("TF32_X2")
+        assert cfg.matmul_precision() == "highest"
+
+    def test_core_contractions_carry_the_policy(self):
+        """The Gram GEMM and the blocked factor's trailing updates pass
+        the policy's precision into every dot of the lowered program."""
+        from gpr_tpu.kernels.kernels import Gaussian, gram
+        from gpr_tpu.ops.blocked import cholesky_blocked
+
+        X = jnp.ones((1100, 3), jnp.float32)
+        f = lambda X: cholesky_blocked(
+            gram(Gaussian(1.0), X) + 1100.0 * jnp.eye(1100, dtype=X.dtype),
+            leaf=256,
+        )
+        text = str(jax.make_jaxpr(f)(X))
+        n_dot = text.count("dot_general")
+        assert n_dot >= 3
+        assert text.count("precision=(Precision.HIGHEST, Precision.HIGHEST)") == n_dot
 
 
 class TestRightLookingCholesky:
@@ -409,109 +253,6 @@ class TestBufferThreadedV2:
         np.testing.assert_allclose(L @ X, B, atol=1e-8)
 
 
-class TestPallasPanel:
-    """Fused panel factorizer (interpret mode)."""
-
-    @pytest.mark.parametrize("n", [256, 1024])
-    def test_panel_matches_cholesky_columns(self, n):
-        from gpr_tpu.ops.pallas_panel import panel_factor
-
-        rng = np.random.default_rng(0)
-        M = rng.standard_normal((n, n)).astype(np.float32)
-        A = M @ M.T + n * np.eye(n, dtype=np.float32)
-        L = np.asarray(panel_factor(jnp.asarray(A[:, :256]), interpret=True))
-        Lref = np.linalg.cholesky(A)[:, :256]
-        assert np.abs(L - Lref).max() / np.abs(Lref).max() < 1e-5
-
-    def test_full_factorization(self):
-        from gpr_tpu.ops.pallas_panel import cholesky_panels
-
-        n = 768
-        rng = np.random.default_rng(1)
-        M = rng.standard_normal((n, n)).astype(np.float32)
-        A = M @ M.T + n * np.eye(n, dtype=np.float32)
-        L = np.asarray(cholesky_panels(jnp.asarray(A), interpret=True))
-        ref = np.linalg.cholesky(A)
-        assert np.abs(np.tril(L) - ref).max() / np.abs(ref).max() < 1e-5
-
-    def test_shape_validation(self):
-        from gpr_tpu.ops.pallas_panel import panel_factor
-
-        with pytest.raises(ValueError):
-            panel_factor(jnp.zeros((300, 256)), interpret=True)
-
-
-class TestLeftLookingPanels:
-    def test_matches_numpy(self):
-        from gpr_tpu.ops.pallas_panel import cholesky_left_panels
-
-        n = 768
-        rng = np.random.default_rng(2)
-        M = rng.standard_normal((n, n)).astype(np.float32)
-        A = M @ M.T + n * np.eye(n, dtype=np.float32)
-        L = np.asarray(cholesky_left_panels(jnp.asarray(A), interpret=True))
-        ref = np.linalg.cholesky(A)
-        assert np.abs(np.tril(L) - ref).max() / np.abs(ref).max() < 1e-5
-
-
-class TestPallasLeaf:
-    """Whole-leaf VMEM factorizer + leaf inverse (interpret mode).
-
-    Measured negative for dispatch (574 us/leaf vs XLA's 275 us on v5e,
-    see BENCHMARKS.md round 2) — kept as validated building blocks."""
-
-    @pytest.mark.parametrize("n", [256, 768])
-    def test_leaf_cholesky_lower_contract(self, n):
-        from gpr_tpu.ops.pallas_leaf import leaf_cholesky
-
-        rng = np.random.default_rng(3)
-        M = rng.standard_normal((n, n)).astype(np.float32)
-        A = M @ M.T + n * np.eye(n, dtype=np.float32)
-        ref = np.linalg.cholesky(A)
-        # garbage in the strict upper must be invisible (potrf('L'))
-        A_dirty = np.tril(A) + np.triu(np.full((n, n), np.nan, np.float32), 1)
-        L = np.asarray(leaf_cholesky(jnp.asarray(A_dirty), interpret=True))
-        assert np.abs(L - ref).max() / np.abs(ref).max() < 1e-5
-        assert (np.triu(L, 1) == 0).all()
-
-    def test_leaf_cholesky_wi(self):
-        from gpr_tpu.ops.pallas_leaf import leaf_cholesky_wi
-
-        n = 768
-        rng = np.random.default_rng(4)
-        M = rng.standard_normal((n, n)).astype(np.float32)
-        A = M @ M.T + n * np.eye(n, dtype=np.float32)
-        L, W = leaf_cholesky_wi(jnp.asarray(A), interpret=True)
-        L, W = np.asarray(L), np.asarray(W)
-        ref = np.linalg.cholesky(A)
-        assert np.abs(L - ref).max() / np.abs(ref).max() < 1e-5
-        assert np.abs(W @ ref - np.eye(n)).max() < 1e-4
-        assert (np.triu(L, 1) == 0).all() and (np.triu(W, 1) == 0).all()
-
-    def test_tri_inv_leaf(self):
-        from gpr_tpu.ops.pallas_leaf import tri_inv_leaf
-
-        n = 512
-        rng = np.random.default_rng(5)
-        M = rng.standard_normal((n, n)).astype(np.float32)
-        L = np.linalg.cholesky(M @ M.T + n * np.eye(n, dtype=np.float32))
-        W = np.asarray(tri_inv_leaf(jnp.asarray(L), interpret=True))
-        assert np.abs(W @ L - np.eye(n)).max() < 1e-4
-
-    def test_blocked_leaf_inverse_path(self):
-        """cholesky_blocked(leaf_inverse=True) routes leaves through the
-        fused pallas kernel and solves via GEMMs — same factor."""
-        from gpr_tpu.ops.blocked import cholesky_blocked
-
-        n = 1536  # leaf=512 -> pallas leaves (interpret on CPU)
-        A = _spd(n, seed=6).astype(np.float32)
-        L = np.asarray(
-            cholesky_blocked(jnp.asarray(A), leaf=512, leaf_inverse=True)
-        )
-        ref = np.linalg.cholesky(A)
-        assert np.abs(np.tril(L) - ref).max() / np.abs(ref).max() < 1e-4
-
-
 class TestPinvAndPolicy:
     def test_pinv_matches_reference_semantics(self):
         """gpr::pinv (Prior.h:38-56): singular values <= epsilon are zeroed,
@@ -539,35 +280,6 @@ class TestPinvAndPolicy:
 
         stats = device_memory_stats()  # may be empty on CPU backends
         assert isinstance(stats, dict)
-
-
-class TestTrilGram:
-    """Lower-triangle-only fused Gram (ops/pallas_gram.py tril mode) —
-    half the flops/HBM writes for the symmetric factorization input
-    (reference lib/GaussianProcess.cpp:384-402 computes the full matrix)."""
-
-    def test_tril_matches_full_lower(self):
-        rng = np.random.default_rng(11)
-        X = rng.standard_normal((700, 33)).astype(np.float32)
-        Kf = np.asarray(
-            gram_pallas(jnp.asarray(X), jnp.asarray(X), 1.9, 1.2, diag=0.3,
-                        interpret=True)
-        )
-        Kt = np.asarray(
-            gram_pallas(jnp.asarray(X), jnp.asarray(X), 1.9, 1.2, diag=0.3,
-                        interpret=True, tril=True)
-        )
-        np.testing.assert_allclose(np.tril(Kt), np.tril(Kf), atol=1e-6)
-
-    def test_tril_rejects_rectangular(self):
-        rng = np.random.default_rng(12)
-        X = rng.standard_normal((64, 4)).astype(np.float32)
-        Y = rng.standard_normal((32, 4)).astype(np.float32)
-        import pytest
-
-        with pytest.raises(ValueError):
-            gram_pallas(jnp.asarray(X), jnp.asarray(Y), interpret=True,
-                        tril=True)
 
 
 class TestBlockTreeCarry:
@@ -617,277 +329,3 @@ class TestBlockTreeCarry:
             L = np.asarray(cholesky_blocked(A, leaf=256, right_solve=rs))
             np.testing.assert_allclose(np.tril(L), Lref, atol=1e-9)
 
-
-class TestPallasSolveNarrow:
-    """Streaming narrow-rhs cho_solve (ops/pallas_solve.py) — replaces the
-    ~100-op substitution chains with 3 device ops (reference regression-
-    vector solve, lib/GaussianProcess.cpp:641-672)."""
-
-    def _case(self, n, q, bs, diag_inv=None):
-        from gpr_tpu.ops.pallas_solve import cho_solve_narrow
-        import scipy.linalg as sla
-
-        rng = np.random.default_rng(16)
-        X = rng.standard_normal((n, 64)).astype(np.float32)
-        A = X @ X.T / 64 + 4.0 * np.eye(n, dtype=np.float32)
-        Lh = np.linalg.cholesky(A).astype(np.float32)
-        B = rng.standard_normal((n, q)).astype(np.float32)
-        Xs = np.asarray(
-            cho_solve_narrow(jnp.asarray(Lh), jnp.asarray(B), bs=bs,
-                             interpret=True, diag_inv=diag_inv)
-        )
-        Xref = sla.cho_solve((Lh, True), B)
-        rel = np.max(np.abs(Xs - Xref)) / np.max(np.abs(Xref))
-        assert rel < 5e-6, f"n={n} q={q} bs={bs} rel={rel}"
-
-    def test_q8(self):
-        self._case(2048, 8, 512)
-
-    def test_q1_and_wide(self):
-        self._case(1024, 1, 512)
-        self._case(1024, 128, 512)
-
-    def test_bs1024(self):
-        self._case(3072, 8, 1024)
-
-    def test_pallas_diag_inv(self):
-        """In-VMEM strip inverses replace the XLA batched triangular-solve
-        custom call; end-to-end solves must match to the same tolerance,
-        including the bs=1024 block-triangular pair combine and a strict
-        upper triangle full of junk (lower-only read contract)."""
-        self._case(2048, 8, 512, diag_inv="pallas")
-        self._case(1024, 8, 256, diag_inv="pallas")
-        self._case(3072, 8, 1024, diag_inv="pallas")
-
-        from gpr_tpu.ops.pallas_solve import _diag_block_inverses_pallas
-
-        rng = np.random.default_rng(19)
-        n, bs = 1024, 256
-        X = rng.standard_normal((n, 64)).astype(np.float32)
-        A = X @ X.T / 64 + 4.0 * np.eye(n, dtype=np.float32)
-        Lh = np.linalg.cholesky(A).astype(np.float32)
-        junk = np.triu(rng.standard_normal((n, n)).astype(np.float32), 1)
-        W = np.asarray(_diag_block_inverses_pallas(
-            jnp.asarray(Lh + junk), bs, interpret=True))
-        for i in range(n // bs):
-            blk = Lh[i * bs:(i + 1) * bs, i * bs:(i + 1) * bs]
-            np.testing.assert_allclose(
-                W[i] @ blk, np.eye(bs, dtype=np.float32), atol=2e-5)
-
-    def test_cho_solve_dispatch_env(self, monkeypatch):
-        """GPR_SOLVE_SCHEDULE=narrow routes linalg.cho_solve through the
-        streaming kernel (interpret on CPU) and matches the blocked path."""
-        import scipy.linalg as sla
-
-        rng = np.random.default_rng(18)
-        n, q = 1024, 8
-        X = rng.standard_normal((n, 64)).astype(np.float32)
-        A = X @ X.T / 64 + 4.0 * np.eye(n, dtype=np.float32)
-        Lh = np.linalg.cholesky(A).astype(np.float32)
-        B = rng.standard_normal((n, q)).astype(np.float32)
-        monkeypatch.setenv("GPR_SOLVE_SCHEDULE", "narrow")
-        got = np.asarray(linalg.cho_solve(jnp.asarray(Lh), jnp.asarray(B)))
-        ref = sla.cho_solve((Lh, True), B)
-        rel = np.max(np.abs(got - ref)) / np.max(np.abs(ref))
-        assert rel < 5e-6, rel
-        # wide rhs (q > 128) must fall back to the blocked path, not error
-        Bw = rng.standard_normal((n, 130)).astype(np.float32)
-        gw = np.asarray(linalg.cho_solve(jnp.asarray(Lh), jnp.asarray(Bw)))
-        np.testing.assert_allclose(
-            gw, sla.cho_solve((Lh, True), Bw), atol=1e-4
-        )
-
-    def test_gradient_matches_dense_solve(self):
-        """The custom VJP (pallas_call has no autodiff rule) must match the
-        dense cho_solve gradient for both operands — the narrow schedule
-        sits on every differentiated path (MLL grads, HMC log-posteriors)
-        once GPR_SOLVE_SCHEDULE=narrow."""
-        from gpr_tpu.ops.pallas_solve import cho_solve_narrow
-
-        rng = np.random.default_rng(21)
-        n, q = 1024, 4
-        X = rng.standard_normal((n, 64)).astype(np.float32)
-        A = X @ X.T / 64 + 4.0 * np.eye(n, dtype=np.float32)
-        Lh = jnp.asarray(np.linalg.cholesky(A).astype(np.float32))
-        B = jnp.asarray(rng.standard_normal((n, q)).astype(np.float32))
-        Wt = jnp.asarray(rng.standard_normal((n, q)).astype(np.float32))
-
-        def dense(L, B):
-            y = jax.scipy.linalg.solve_triangular(L, B, lower=True)
-            return jax.scipy.linalg.solve_triangular(L.T, y, lower=False)
-
-        f_n = lambda L, B: jnp.sum(
-            cho_solve_narrow(L, B, interpret=True) * Wt
-        )
-        f_d = lambda L, B: jnp.sum(dense(L, B) * Wt)
-        gLn, gBn = jax.grad(f_n, argnums=(0, 1))(Lh, B)
-        gLd, gBd = jax.grad(f_d, argnums=(0, 1))(Lh, B)
-        # the dense rule leaves junk cotangent above the diagonal that the
-        # primal never reads; compare the meaningful (lower) triangle
-        scale = float(jnp.abs(gLd).max())
-        np.testing.assert_allclose(
-            np.tril(np.asarray(gLn)), np.tril(np.asarray(gLd)),
-            atol=2e-5 * scale,
-        )
-        np.testing.assert_allclose(
-            np.asarray(gBn), np.asarray(gBd),
-            atol=2e-5 * float(jnp.abs(gBd).max()),
-        )
-
-    def test_narrow_schedule_differentiable_mll(self, monkeypatch):
-        """GPR_SOLVE_SCHEDULE=narrow must not break jax.grad of the MLL
-        (the fit_mle / HMC production paths)."""
-        import gpr_tpu as gt
-        from gpr_tpu.gp import likelihood as lk
-
-        monkeypatch.setenv("GPR_SOLVE_SCHEDULE", "narrow")
-        rng = np.random.default_rng(22)
-        X = jnp.asarray(rng.standard_normal((1024, 3)), jnp.float32)
-        Y = jnp.asarray(np.sin(np.asarray(X).sum(1, keepdims=True)), jnp.float32)
-        k = gt.Gaussian(jnp.asarray(1.5, jnp.float32), jnp.asarray(1.0, jnp.float32))
-
-        def obj(s):
-            return lk.mll_scalar(gt.Gaussian(s, jnp.asarray(1.0, jnp.float32)), X, Y, 0.1)
-
-        g = jax.grad(obj)(jnp.asarray(1.5, jnp.float32))
-        assert np.isfinite(float(g))
-        monkeypatch.setenv("GPR_SOLVE_SCHEDULE", "blocked")
-        gb = jax.grad(obj)(jnp.asarray(1.5, jnp.float32))
-        np.testing.assert_allclose(float(g), float(gb), rtol=5e-3)
-
-    def test_vector_rhs(self):
-        from gpr_tpu.ops.pallas_solve import cho_solve_narrow
-        import scipy.linalg as sla
-
-        rng = np.random.default_rng(17)
-        n = 1024
-        X = rng.standard_normal((n, 32)).astype(np.float32)
-        A = X @ X.T / 32 + 4.0 * np.eye(n, dtype=np.float32)
-        Lh = np.linalg.cholesky(A).astype(np.float32)
-        b = rng.standard_normal(n).astype(np.float32)
-        xs = np.asarray(cho_solve_narrow(jnp.asarray(Lh), jnp.asarray(b),
-                                         interpret=True))
-        assert xs.shape == (n,)
-        np.testing.assert_allclose(
-            xs, sla.cho_solve((Lh, True), b), atol=1e-4
-        )
-
-
-class TestInplaceCholesky:
-    """ops/inplace_chol.py: the in-place wide-panel schedule (interpret)."""
-
-    def _spd(self, n, seed=0):
-        import numpy as np
-        rng = np.random.default_rng(seed)
-        G = rng.standard_normal((n, n))
-        return jnp.asarray(G @ G.T + n * np.eye(n), jnp.float32)
-
-    def test_matches_numpy(self):
-        import numpy as np
-        from gpr_tpu.ops import inplace_chol as ic
-
-        A = self._spd(1024)
-        L = ic.cholesky_inplace(A, interpret=True)
-        ref = np.linalg.cholesky(np.asarray(A, np.float64))
-        np.testing.assert_allclose(np.asarray(L), ref, rtol=0, atol=5e-3)
-        assert not np.any(np.triu(np.asarray(L), 1))
-
-    def test_reads_lower_only(self):
-        import numpy as np
-        from gpr_tpu.ops import inplace_chol as ic
-
-        A = self._spd(512, seed=3)
-        junk = jnp.where(jnp.tril(jnp.ones(A.shape)) > 0, A, 1234.0)
-        L0 = ic.cholesky_inplace(A, interpret=True)
-        L1 = ic.cholesky_inplace(junk, interpret=True)
-        np.testing.assert_array_equal(np.asarray(L0), np.asarray(L1))
-
-    def test_rank_update_inplace(self):
-        import numpy as np
-        from gpr_tpu.ops import inplace_chol as ic
-
-        rng = np.random.default_rng(1)
-        S = jnp.asarray(rng.standard_normal((1024, 1024)), jnp.float32)
-        rows = np.asarray([2, 3, 3], np.int32)
-        cols = np.asarray([2, 2, 3], np.int32)
-        kcols = np.asarray([0, 1], np.int32)
-        out = ic.rank_update_inplace(S, rows, cols, kcols, bm=256, bk=256,
-                                     interpret=True)
-        ref = np.asarray(S, np.float64)
-        P = ref[:, :512]
-        for (i, j) in [(2, 2), (3, 2), (3, 3)]:
-            ref[i*256:(i+1)*256, j*256:(j+1)*256] -= (
-                P[i*256:(i+1)*256] @ P[j*256:(j+1)*256].T
-            )
-        np.testing.assert_allclose(np.asarray(out), ref, rtol=0, atol=2e-2)
-
-
-class TestPallasGramForms:
-    """Fused tile Gram for every stationary kernel family (interpret)."""
-
-    def test_forms_match_reference_gram(self):
-        import numpy as np
-        import gpr_tpu
-        from gpr_tpu.kernels import kernels as kermod
-        from gpr_tpu.ops import pallas_gram
-
-        rng = np.random.default_rng(5)
-        X = jnp.asarray(rng.standard_normal((200, 3)), jnp.float32)
-        cases = [
-            (gpr_tpu.Gaussian(1.3, 0.8), "gaussian", 1.0),
-            (kermod.RationalQuadratic(0.8, 1.1, 1.7), "rq", 1.7),
-            (kermod.Matern12(1.2, 0.9), "matern12", 1.0),
-            (kermod.Matern32(1.2, 0.9), "matern32", 1.0),
-            (kermod.Matern52(1.2, 0.9), "matern52", 1.0),
-            (kermod.Periodic(0.9, 1.7, 1.1), "periodic", 1.7),
-        ]
-        for k, form, third in cases:
-            ref = np.asarray(kermod.gram(k, X), np.float64)
-            got = pallas_gram.gram_pallas(
-                X, X, k.sigma, k.scale, third, form=form, interpret=True
-            )
-            # bf16x3 cross-term: tier-class tolerance (see
-            # TestPallasGram.test_rq_matches_xla)
-            np.testing.assert_allclose(np.asarray(got), ref, rtol=0,
-                                       atol=2e-4, err_msg=form)
-
-    def test_fit_dispatch_all_families(self):
-        import math
-        import numpy as np
-        from gpr_tpu.kernels import kernels as kermod
-        from gpr_tpu.gp import exact
-
-        rng = np.random.default_rng(7)
-        X = jnp.asarray(rng.standard_normal((150, 2)), jnp.float32)
-        Y = jnp.sin(X.sum(-1, keepdims=True))
-        ks = [
-            kermod.GaussianExp(math.log(1.3), math.log(0.8)),
-            kermod.Matern32(1.2, 0.9),
-            kermod.Periodic(0.9, 1.7, 1.1),
-        ]
-        for k in ks:
-            gp0 = exact.fit(k, X, Y, sigma=0.1, use_pallas_gram=False)
-            gp1 = exact.fit(k, X, Y, sigma=0.1, use_pallas_gram=True)
-            rel = float(jnp.abs(gp0.alpha - gp1.alpha).max()
-                        / jnp.abs(gp0.alpha).max())
-            assert rel < 2e-3, type(k).__name__
-
-    def test_safe_cholesky_inplace_schedule(self, monkeypatch):
-        """safe_cholesky through GPR_CHOL_SCHEDULE=inplace (interpret):
-        factor matches the recursive schedule, retry semantics intact."""
-        import numpy as np
-        from gpr_tpu.ops import linalg
-
-        monkeypatch.setenv("GPR_CHOL_SCHEDULE", "inplace")
-        rng = np.random.default_rng(11)
-        G = rng.standard_normal((1024, 1024))
-        A = jnp.asarray(G @ G.T + 1024 * np.eye(1024), jnp.float32)
-        L, j = linalg.safe_cholesky(A)
-        assert float(j) == 0.0
-        ref = np.linalg.cholesky(np.asarray(A, np.float64))
-        np.testing.assert_allclose(np.asarray(L), ref, rtol=0, atol=5e-3)
-        # a singular matrix must escalate to a successful jittered factor
-        bad = jnp.zeros((1024, 1024), jnp.float32)
-        Lb, jb = linalg.safe_cholesky(bad)
-        assert float(jb) > 0.0
-        assert bool(jnp.all(jnp.isfinite(Lb)))

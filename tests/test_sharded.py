@@ -1,8 +1,8 @@
 """Multi-device distributed linalg tests (8 virtual CPU devices).
 
 The reference has nothing distributed to test (SURVEY.md §4 "what does NOT
-exist"); these tests cover the TPU-native scale-out the rebuild adds:
-row-sharded Gram, block-panel distributed Cholesky with ICI collectives,
+exist"); these tests cover the scale-out the rebuild adds:
+row-sharded Gram, block-panel distributed Cholesky with collectives,
 owner-compute/psum-broadcast triangular solves, and the sharded GP fit
 against its single-device reference."""
 

@@ -6,19 +6,19 @@ module, in package order.  Run on the CPU backend:
 
 import importlib
 import inspect
+import os
 import pkgutil
 import sys
 
-import jax
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
 MODULES = [
     "gpr_tpu.kernels.kernels", "gpr_tpu.kernels.dsl", "gpr_tpu.kernels.utils",
-    "gpr_tpu.ops.linalg", "gpr_tpu.ops.blocked", "gpr_tpu.ops.pallas_gram",
-    "gpr_tpu.ops.pallas_syrk", "gpr_tpu.ops.pallas_solve",
-    "gpr_tpu.ops.pallas_batched", "gpr_tpu.ops.pallas_chol",
-    "gpr_tpu.ops.pallas_panel",
+    "gpr_tpu.ops.linalg", "gpr_tpu.ops.blocked",
     "gpr_tpu.gp.exact", "gpr_tpu.gp.sparse", "gpr_tpu.gp.likelihood",
     "gpr_tpu.gp.batched",
     "gpr_tpu.inference.priors", "gpr_tpu.inference.optimize",
@@ -33,6 +33,7 @@ MODULES = [
     "gpr_tpu.pipeline.bspline",
     "gpr_tpu.data.prep", "gpr_tpu.data.dicom",
     "gpr_tpu.utils.matrixio", "gpr_tpu.utils.native", "gpr_tpu.utils.config",
+    "gpr_tpu.utils.compile_cache",
     "gpr_tpu.utils.logutils", "gpr_tpu.utils.profiling",
     "gpr_tpu.apps.learn", "gpr_tpu.apps.predict", "gpr_tpu.apps.experiments",
     "gpr_tpu.apps.validate", "gpr_tpu.apps.drift", "gpr_tpu.apps.analysis",
